@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at first use, never at import: one ``nvcc`` per source, all
+started together. Libraries go to ``build/fss_tpu_torch/`` beside the
+package (git-ignored), named by a digest of their sources and flags, so a
+later process reuses them and an edited source is rebuilt.
+
+Every C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when
+that is not 0 and counts the launch in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
+    "fss_tpu_torch"
+SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
+HEADERS = ("chacha.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches per source since the last reset_launches().
+launches = {name: 0 for name in SOURCES}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu", *HEADERS):
+        h.update((CSRC / f).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict[str, str]:
+    """Compile every source not built yet and load all libraries.
+
+    Returns each source's ``ptxas -v`` report (registers, spills).
+    Raises RuntimeError with the compiler's output if a build fails.
+    """
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name in SOURCES:
+            if name in _libs:
+                continue
+            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            if not so.exists():
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                jobs[name] = (so, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+        failed = []
+        for name, (so, tmp, proc) in jobs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}")
+                continue
+            so.with_suffix(".log").write_text(out)
+            os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        for name in SOURCES:
+            if name not in _libs:
+                so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+                _libs[name] = ctypes.CDLL(str(so))
+                log = so.with_suffix(".log")
+                _logs[name] = log.read_text() if log.exists() else ""
+        return dict(_logs)
+
+
+def function(source: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``source``'s library, typed."""
+    if source not in _libs:
+        build()
+    fn = getattr(_libs[source], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(source: str, fn, *args, device: torch.device) -> None:
+    """Call a C entry point on ``device``'s current stream, raise if the
+    launch failed, and count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
+    launches[source] += 1
+
+
+def check(t: torch.Tensor, name: str, device: torch.device,
+          shapes) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor on ``device`` whose
+    shape is one of ``shapes``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) not in [tuple(s) for s in shapes]:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected one "
+                         f"of {[tuple(s) for s in shapes]}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+P = ctypes.c_void_p
+I64 = ctypes.c_int64
+INT = ctypes.c_int
+U32 = ctypes.c_uint32

@@ -1,0 +1,142 @@
+"""High-level DPF API on PyTorch tensors.
+
+Counterpart of ``fss_tpu.api`` for the DPF scheme (``Dpf``,
+``PackedDpfKeys``, ``DEFAULT_NONCE``). Entry points run on the card
+unless the caller asks for the CPU: ``Dpf(..., device="cuda")`` is the
+default, and inputs given as ints, lists, numpy arrays or tensors are
+moved to ``Dpf.device``. On a CUDA device every Gen, Eval and EvalAll goes
+through the CUDA kernels of ``fss_tpu_torch.ops``; on the CPU through
+their plain PyTorch versions. There is no fallback between the two.
+
+Keys and shares are int32 tensors bit-identical to the reference's int32
+tensors and to the JAX package's uint32 arrays.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import numpy as np
+import torch
+
+from fss_tpu_torch import block as blk
+from fss_tpu_torch import groups
+from fss_tpu_torch.ops import dpf_cuda, eval_all_cuda
+from fss_tpu_torch.prg.chacha import ChaCha
+
+DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
+
+
+class PackedDpfKeys(typing.NamedTuple):
+    """A DPF key batch in the kernels' packed layout.
+
+    ``Dpf.gen_batch(..., layout="packed")`` returns this instead of wire
+    rows [B, in_bits+1, 8]; ``Dpf.eval`` accepts it wherever wire keys
+    go. The layout holds only the 5 cw words each level uses, as planes
+    in which neighbouring keys sit on neighbouring words. It is for
+    same-process gen -> eval pipelines; keys that leave the process need
+    the wire layout (``to_wire``).
+
+    Fields: cws_p [in_bits, 5, B] int32 cw planes; ocw [B, 4] int32
+    output CW.
+    """
+
+    cws_p: torch.Tensor
+    ocw: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.ocw.shape[0]
+
+    def to_wire(self, in_bits: int) -> torch.Tensor:
+        return dpf_cuda.wire_rows(in_bits, self.cws_p, self.ocw)
+
+    @classmethod
+    def from_wire(cls, cws: torch.Tensor, in_bits: int) -> "PackedDpfKeys":
+        return cls(*dpf_cuda.pack_keys(cws, in_bits))
+
+
+class Dpf:
+    """2-party DPF with the ChaCha PRG.
+
+    Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
+    """
+
+    def __init__(self, in_bits: int, group=None, prg=None,
+                 device="cuda"):
+        if not 1 <= in_bits <= 128:
+            raise ValueError(f"in_bits must be in 1..128, got {in_bits}")
+        self.in_bits = in_bits
+        self.group = group if group is not None else groups.Bytes()
+        self.prg = prg if prg is not None else ChaCha(mul=2,
+                                                      nonce=DEFAULT_NONCE)
+        if not isinstance(self.prg, ChaCha) or self.prg.mul != 2:
+            raise ValueError("Dpf needs the ChaCha PRG with mul=2")
+        self.device = torch.device(device)
+
+    # -- input staging ----------------------------------------------------
+
+    def _blocks(self, vals) -> torch.Tensor:
+        return blk.block(vals, self.device).contiguous()
+
+    def _inputs(self, xs) -> torch.Tensor:
+        """Inputs in the kernels' layout: [B] words for in_bits <= 32 given
+        as a flat int array, else [B, 4] lanes."""
+        if self.in_bits <= 32 and not isinstance(xs, (int, np.integer)):
+            arr = xs if isinstance(xs, torch.Tensor) else np.asarray(xs)
+            if arr.ndim == 1:
+                return blk.words(arr, self.device).contiguous()
+        lanes = blk.pack_inputs(xs, self.in_bits, self.device)
+        return lanes.reshape(-1, 4).contiguous()
+
+    # -- scheme -------------------------------------------------------------
+
+    def gen(self, s0s, alpha, beta) -> torch.Tensor:
+        """One key: s0s [2, 4], alpha an int (or lanes), beta [4].
+        Returns cws [in_bits+1, 8]."""
+        return self.gen_batch(self._blocks(s0s)[None],
+                              blk.pack_inputs(alpha, self.in_bits,
+                                              self.device).reshape(1, 4),
+                              self._blocks(beta)[None])[0]
+
+    def gen_batch(self, s0s, alphas, betas, layout: str = "wire"):
+        """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
+        (or [B, 4] lanes, or a list of ints), betas [B, 4].
+
+        ``layout="wire"`` returns cws [B, in_bits+1, 8];
+        ``layout="packed"`` returns :class:`PackedDpfKeys`.
+        """
+        args = (self.prg.nonce, self.group, self.in_bits,
+                self._blocks(s0s), self._inputs(alphas),
+                self._blocks(betas))
+        if layout == "packed":
+            return PackedDpfKeys(*dpf_cuda.gen_batch_packed(
+                *args, rounds=self.prg.rounds))
+        if layout != "wire":
+            raise ValueError(f"layout must be 'wire' or 'packed', got "
+                             f"{layout}")
+        return dpf_cuda.gen_batch(*args, rounds=self.prg.rounds)
+
+    def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
+        """Point evaluation. s0 [B, 4] or [4]; cws wire rows
+        [B, in_bits+1, 8], one key [in_bits+1, 8], or PackedDpfKeys; xs
+        ints, an int array, or [B, 4] lanes. Returns [B, 4] shares ([4]
+        for a single int x)."""
+        x = self._inputs(xs)
+        s0 = self._blocks(s0)
+        if isinstance(cws, PackedDpfKeys):
+            y = dpf_cuda.eval_points_packedkey(
+                self.prg.nonce, self.group, self.in_bits, int(party), s0,
+                self._blocks(cws.cws_p), self._blocks(cws.ocw), x,
+                rounds=self.prg.rounds)
+        else:
+            y = dpf_cuda.eval_points(
+                self.prg.nonce, self.group, self.in_bits, int(party), s0,
+                self._blocks(cws), x, rounds=self.prg.rounds)
+        return y[0] if isinstance(xs, (int, np.integer)) else y
+
+    def eval_all(self, party: int, s0, cws) -> torch.Tensor:
+        """Full-domain evaluation of one key: [2^in_bits, 4] shares."""
+        return eval_all_cuda.eval_all(self.prg, self.group, self.in_bits,
+                                      int(party), self._blocks(s0),
+                                      self._blocks(cws))

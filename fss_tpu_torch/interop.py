@@ -1,0 +1,72 @@
+"""Carry state between the JAX package and the port.
+
+The JAX package's state is numpy uint32 arrays (``np.asarray`` of its
+jax arrays); the port's is int32 tensors with the same bits. This module
+converts seeds [..., 2, 4], wire keys [B, in_bits+1, 8], the JAX
+package's packed keys (cw planes [in_bits, 5, T, 128] + ocw [B, 4]) and a
+DPF configuration described by plain values, in both directions. It
+imports nothing of the JAX package: a caller hands it arrays and values.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fss_tpu_torch import block as blk
+from fss_tpu_torch import groups
+from fss_tpu_torch.api import Dpf, PackedDpfKeys
+from fss_tpu_torch.prg.chacha import ChaCha
+
+LANES = 128  # key lanes per row of the JAX package's packed planes
+
+
+def to_torch(arr, device="cuda") -> torch.Tensor:
+    """uint32 array (seeds, keys, shares, xs) -> int32 tensor, same bits."""
+    return blk.words(np.asarray(arr), device).contiguous()
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor -> uint32 numpy array, same bits."""
+    return blk.to_numpy(t)
+
+
+def packed_keys_from_jax(cws_t, ocw, device="cuda") -> PackedDpfKeys:
+    """JAX packed keys (cws_t [n, 5, T, 128], ocw [B, 4]) -> the port's
+    PackedDpfKeys (planes [n, 5, B], ocw [B, 4])."""
+    cws_t = np.asarray(cws_t)
+    n, words, T, lanes = cws_t.shape
+    B = np.asarray(ocw).shape[0]
+    planes = cws_t.reshape(n, words, T * lanes)[:, :, :B]
+    return PackedDpfKeys(to_torch(planes, device), to_torch(ocw, device))
+
+
+def packed_keys_to_jax(keys: PackedDpfKeys):
+    """The port's PackedDpfKeys -> (cws_t [n, 5, T, 128], ocw [B, 4])
+    uint32 arrays, padded with zero keys to whole 128-key rows."""
+    planes = to_numpy(keys.cws_p)
+    n, words, B = planes.shape
+    T = -(-B // LANES)
+    padded = np.zeros((n, words, T * LANES), dtype=np.uint32)
+    padded[:, :, :B] = planes
+    return padded.reshape(n, words, T, LANES), to_numpy(keys.ocw)
+
+
+def dpf_config(in_bits: int, group, prg) -> dict:
+    """A DPF configuration as plain values, read from a group and a
+    ChaCha PRG of either package (Bytes has ``name == "bytes"``, Uint has
+    ``bits`` and ``mod``; the PRG has ``nonce`` and ``rounds``)."""
+    cfg = {"in_bits": int(in_bits), "group": group.name,
+           "nonce": [int(n) for n in prg.nonce], "rounds": int(prg.rounds)}
+    if group.name != "bytes":
+        cfg.update(group="uint", bits=int(group.bits), mod=int(group.mod))
+    return cfg
+
+
+def dpf_from_config(cfg: dict, device="cuda") -> Dpf:
+    """The port's Dpf for a configuration made by :func:`dpf_config`."""
+    group = (groups.Bytes() if cfg["group"] == "bytes"
+             else groups.Uint(cfg["bits"], cfg.get("mod", 0)))
+    prg = ChaCha(mul=2, nonce=tuple(cfg["nonce"]),
+                 rounds=cfg.get("rounds", 20))
+    return Dpf(cfg["in_bits"], group=group, prg=prg, device=device)

@@ -1,0 +1,207 @@
+"""The port's DPF Gen and point Eval against fss_tpu, byte-exact.
+
+Tolerance is 0 throughout (integer crypto). The JAX side runs its Pallas
+kernels in interpret mode, as tests/test_dpf_pallas.py does, and its
+plain scheme code; the port runs on the CPU, where each kernel wrapper
+takes its plain PyTorch version.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fss_tpu import block as jblk
+from fss_tpu import groups as jgroups
+from fss_tpu.ops import dpf_pallas
+from fss_tpu.prg.chacha import ChaCha as JChaCha
+from fss_tpu.schemes import dpf as jdpf
+from fss_tpu_torch import block as tblk
+from fss_tpu_torch import groups as tgroups
+from fss_tpu_torch import interop
+from fss_tpu_torch.ops import dpf_cuda
+from fss_tpu_torch.prg.chacha import ChaCha as TChaCha
+from fss_tpu_torch.schemes import dpf as tdpf
+
+NONCE = (0xABCD1234, 0x55AA55AA)
+B = 300  # not a multiple of anything the kernels tile by
+
+GROUPS = {
+    "uint32": (jgroups.Uint(32), tgroups.Uint(32)),
+    "bytes": (jgroups.Bytes(), tgroups.Bytes()),
+    "uint127": (jgroups.Uint(128, 1 << 127), tgroups.Uint(128, 1 << 127)),
+}
+
+
+def _inputs(rng, in_bits, batch=B):
+    s0s = rng.integers(0, 2**32, size=(batch, 2, 4), dtype=np.uint32)
+    alphas = rng.integers(0, 2**in_bits, size=batch, dtype=np.uint32)
+    betas = rng.integers(0, 2**32, size=(batch, 4), dtype=np.uint32)
+    xs = alphas.copy()
+    xs[1::2] = rng.integers(0, 2**in_bits, size=batch // 2, dtype=np.uint32)
+    return s0s, alphas, betas, xs
+
+
+def _np(t):
+    return tblk.to_numpy(t)
+
+
+def to_cpu(arr):
+    return interop.to_torch(arr, device="cpu")
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("gname", list(GROUPS))
+def test_eval_matches_jax(gname, party, rng):
+    in_bits = 8
+    jg, tg = GROUPS[gname]
+    s0s, alphas, betas, xs = _inputs(rng, in_bits)
+    cws = np.asarray(dpf_pallas.gen_batch(
+        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
+        block_rows=8, interpret=True))
+    want = np.asarray(dpf_pallas.eval_points(
+        NONCE, jg, in_bits, party, jblk.block(s0s[:, party]), cws, xs,
+        block_rows=8, interpret=True))
+    ref = np.asarray(jdpf.eval_points(JChaCha(2, NONCE), jg, in_bits, party,
+                                      jblk.block(s0s[:, party]), cws, xs))
+    assert np.array_equal(want, ref)
+
+    s0, kc, kx = (to_cpu(s0s[:, party]), to_cpu(cws),
+                  to_cpu(xs))
+    got_ops = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, kc, kx)
+    got_plain = tdpf.eval_points(TChaCha(2, NONCE), tg, in_bits, party, s0,
+                                 kc, tblk.pack_inputs(kx, in_bits))
+    assert np.array_equal(_np(got_ops), want)
+    assert np.array_equal(_np(got_plain), want)
+
+
+@pytest.mark.parametrize("gname", list(GROUPS))
+def test_gen_matches_jax(gname, rng):
+    in_bits = 8
+    jg, tg = GROUPS[gname]
+    s0s, alphas, betas, _ = _inputs(rng, in_bits)
+    want = np.asarray(dpf_pallas.gen_batch(
+        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
+        block_rows=8, interpret=True))
+    ts0s, ta, tb = (to_cpu(s0s), to_cpu(alphas),
+                    to_cpu(betas))
+    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(ts0s, ta, in_bits, NONCE)
+    assert np.array_equal(_np(cws[:, in_bits]), np.zeros((B, 8), np.uint32))
+    cws[:, in_bits, :4] = dpf_cuda.output_cw(tg, s0f, s1f, t1,
+                                             to_cpu(betas))
+    assert np.array_equal(_np(cws), want)
+    assert np.array_equal(
+        _np(dpf_cuda.gen_batch(NONCE, tg, in_bits, ts0s, ta, tb)), want)
+    plain = tdpf.gen(TChaCha(2, NONCE), tg, in_bits, ts0s,
+                     tblk.pack_inputs(ta, in_bits), tb)
+    assert np.array_equal(_np(plain), want)
+    # The leaves: party 1's t is party 0's t ^ 1 everywhere on the path.
+    assert np.array_equal(_np(t0 ^ t1), np.ones(B, np.uint32))
+
+
+def test_packed_keys_from_jax_match_wire_path(rng):
+    in_bits = 9
+    jg, tg = GROUPS["uint32"]
+    s0s, alphas, betas, xs = _inputs(rng, in_bits)
+    wire = np.asarray(dpf_pallas.gen_batch(
+        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
+        block_rows=8, interpret=True))
+    cws_t, ocw, _ = dpf_pallas.gen_batch_packed(
+        NONCE, jg, in_bits, jax.numpy.asarray(jblk.block(s0s)), alphas,
+        jax.numpy.asarray(jblk.block(betas)), block_rows=8, interpret=True)
+    keys = interop.packed_keys_from_jax(cws_t, ocw, device="cpu")
+    assert np.array_equal(_np(keys.to_wire(in_bits)), wire)
+
+    # The port's own packed Gen gives the same planes.
+    cws_p, ocw_p = dpf_cuda.gen_batch_packed(
+        NONCE, tg, in_bits, to_cpu(s0s), to_cpu(alphas),
+        to_cpu(betas))
+    assert torch.equal(cws_p, keys.cws_p) and torch.equal(ocw_p, keys.ocw)
+
+    tw = to_cpu(wire)
+    for party in (0, 1):
+        s0, tx = to_cpu(s0s[:, party]), to_cpu(xs)
+        via_wire = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, tw, tx)
+        via_packed = dpf_cuda.eval_points_packedkey(
+            NONCE, tg, in_bits, party, s0, keys.cws_p, keys.ocw, tx)
+        assert torch.equal(via_packed, via_wire)
+        want = np.asarray(jdpf.eval_points(JChaCha(2, NONCE), jg, in_bits,
+                                           party, jblk.block(s0s[:, party]),
+                                           wire, xs))
+        assert np.array_equal(_np(via_wire), want)
+
+
+def test_wide_domain_matches_jax(rng):
+    in_bits = 48
+    batch = 20
+    jg, tg = GROUPS["bytes"]
+    prg = JChaCha(2, NONCE)
+    s0s = rng.integers(0, 2**32, size=(batch, 2, 4), dtype=np.uint32)
+    betas = rng.integers(0, 2**32, size=(batch, 4), dtype=np.uint32)
+    alphas = [int(v) for v in rng.integers(0, 2**48, size=batch)]
+    xs = [a if i % 2 == 0 else a ^ (1 << (i % 48))
+          for i, a in enumerate(alphas)]
+    a_lanes = jblk.pack_inputs(alphas, in_bits)
+    want = np.asarray(jax.vmap(
+        lambda s, a, b: jdpf.gen(prg, jg, in_bits, s, a, b))(
+            jblk.block(s0s), a_lanes, jblk.block(betas)))
+    ts0s, ta = to_cpu(s0s), tblk.pack_inputs(alphas, in_bits)
+    cws = dpf_cuda.gen_batch(NONCE, tg, in_bits, ts0s, ta,
+                             to_cpu(betas))
+    assert np.array_equal(_np(cws), want)
+
+    x_lanes = tblk.pack_inputs(xs, in_bits)
+    shares = []
+    for party in (0, 1):
+        ref = np.asarray(jdpf.eval_points(
+            prg, jg, in_bits, party, jblk.block(s0s[:, party]), want,
+            jblk.pack_inputs(xs, in_bits)))
+        got = dpf_cuda.eval_points(NONCE, tg, in_bits, party,
+                                   ts0s[:, party].contiguous(), cws, x_lanes)
+        assert np.array_equal(_np(got), ref)
+        shares.append(got)
+    rec = _np(shares[0] ^ shares[1])
+    beta = _np(tblk.clear_lsb(to_cpu(betas)))
+    assert np.array_equal(rec[0::2], beta[0::2])
+    assert not rec[1::2].any()
+
+
+def test_broadcast_key_matches_per_key_rows(rng):
+    in_bits = 10
+    tg = tgroups.Uint(64, (1 << 61) - 1)
+    s0s, alphas, betas, _ = _inputs(rng, in_bits, batch=1)
+    cws = dpf_cuda.gen_batch(NONCE, tg, in_bits, to_cpu(s0s),
+                             to_cpu(alphas),
+                             to_cpu(betas))[0]
+    xs = to_cpu(np.arange(2**in_bits, dtype=np.uint32))
+    for party in (0, 1):
+        s0 = to_cpu(s0s[0, party])
+        one = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, cws, xs)
+        rows = cws.expand(xs.shape[0], -1, -1).contiguous()
+        seeds = s0.expand(xs.shape[0], 4).contiguous()
+        many = dpf_cuda.eval_points(NONCE, tg, in_bits, party, seeds, rows,
+                                    xs)
+        assert torch.equal(one, many)
+
+
+def test_kernel_wrappers_validate_inputs():
+    s0 = torch.zeros((4, 4), dtype=torch.int32)
+    xs = torch.zeros((4,), dtype=torch.int32)
+    cws = torch.zeros((4, 9, 8), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        dpf_cuda.eval_packed(s0.long(), cws, xs, 8, 0, NONCE)
+    with pytest.raises(ValueError):
+        dpf_cuda.eval_packed(s0, cws[:, :8], xs, 8, 0, NONCE)
+    with pytest.raises(ValueError):
+        dpf_cuda.eval_packed(s0, cws.transpose(0, 1).contiguous()
+                             .transpose(0, 1), xs, 8, 0, NONCE)
+    with pytest.raises(ValueError):  # wide domains need x as 4 lanes
+        dpf_cuda.eval_packed(s0, torch.zeros((4, 41, 8), dtype=torch.int32),
+                             xs, 40, 0, NONCE)
+    with pytest.raises(ValueError):
+        dpf_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
+                            8, NONCE, layout="rows")
+    with pytest.raises(ValueError):  # the control bit starts as the party
+        dpf_cuda.eval_packed(s0, cws, xs, 8, 2, NONCE)
+    with pytest.raises(ValueError):
+        dpf_cuda.eval_packed(s0, cws, xs, 8, 0, NONCE, rounds=7)

@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``: each test skips without a CUDA device (decided inside the
+``cuda`` fixture, never at import). The file imports no JAX, so on a
+machine without it run it as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import hashlib
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from fss_tpu_torch import _build
+from fss_tpu_torch import block as blk
+from fss_tpu_torch import groups
+from fss_tpu_torch.api import Dpf
+from fss_tpu_torch.ops import dpf_cuda, eval_all_cuda
+from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes import dpf as plain_dpf
+
+pytestmark = pytest.mark.gpu
+
+NONCE = (0xABCD1234, 0x55AA55AA)
+VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _words(rng, shape, dev, bits=32):
+    return blk.words(rng.integers(0, 2**bits, size=shape, dtype=np.uint64),
+                     dev)
+
+
+def _inputs(rng, n, batch, dev):
+    """Alpha (or x) values below 2^n in the kernels' layout."""
+    if n <= 32:
+        return _words(rng, (batch,), dev, n)
+    vals = [int(v) % (1 << n) for v in rng.integers(0, 2**63, size=batch)]
+    vals = [(v << 64 | v) % (1 << n) for v in vals]
+    return blk.pack_inputs(vals, n, dev)
+
+
+@pytest.mark.parametrize("layout", ["wire", "packed", "broadcast"])
+@pytest.mark.parametrize("n", [8, 16, 48, 128])
+def test_eval_kernel_matches_plain(n, layout, cuda):
+    rng = np.random.default_rng(n)
+    batch = 1000
+    s0s = _words(rng, (batch, 2, 4), cuda)
+    alphas = _inputs(rng, n, batch, cuda)
+    wire = dpf_cuda.gen_batch(NONCE, groups.Bytes(), n, s0s, alphas,
+                              _words(rng, (batch, 4), cuda))
+    xs = alphas.clone()
+    xs.view(batch, -1)[1::2, 0] ^= 1
+    s0, cws, packed = {
+        "wire": (s0s[:, 0].contiguous(), wire, False),
+        "packed": (s0s[:, 0].contiguous(), dpf_cuda.pack_keys(wire, n)[0],
+                   True),
+        "broadcast": (s0s[0, 0].contiguous(), wire[0].contiguous(), False),
+    }[layout]
+    for party in (0, 1):
+        got = dpf_cuda.eval_packed(s0, cws, xs, n, party, NONCE,
+                                   packed=packed)
+        want = dpf_cuda.eval_packed_plain(s0, cws, xs, n, party, NONCE,
+                                          packed=packed)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("layout", ["wire", "packed"])
+@pytest.mark.parametrize("n", [8, 16, 48, 128])
+def test_gen_kernel_matches_plain(n, layout, cuda):
+    rng = np.random.default_rng(100 + n)
+    batch = 1000
+    s0s = _words(rng, (batch, 2, 4), cuda)
+    alphas = _inputs(rng, n, batch, cuda)
+    got = dpf_cuda.gen_packed(s0s, alphas, n, NONCE, layout=layout)
+    want = dpf_cuda.gen_packed_plain(s0s, alphas, n, NONCE, layout=layout)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 13])
+def test_eval_all_kernel_matches_plain(n, cuda):
+    rng = np.random.default_rng(200 + n)
+    prg = ChaCha(2, NONCE)
+    g = groups.Uint(64, (1 << 61) - 1)
+    s0s = _words(rng, (1, 2, 4), cuda)
+    cws = plain_dpf.gen(prg, g, n, s0s,
+                        blk.pack_inputs([int(rng.integers(0, 2**n))], n,
+                                        cuda), _words(rng, (1, 4), cuda))[0]
+    for party in (0, 1):
+        got = eval_all_cuda.eval_all(prg, g, n, party, s0s[0, party], cws)
+        want = plain_dpf.eval_all(prg, g, n, party, s0s[0, party], cws)
+        assert torch.equal(got, want)
+
+
+def test_kernels_count_launches(cuda):
+    _build.reset_launches()
+    d = Dpf(10, groups.Uint(32), device=cuda)
+    s0s = np.arange(8, dtype=np.uint32).reshape(2, 4)
+    cws = d.gen(s0s, 5, [1, 0, 0, 0])
+    d.eval(0, s0s[0], cws, [4, 5])
+    d.eval_all(1, s0s[1], cws)
+    assert _build.launches == {"dpf_gen": 1, "dpf_eval": 1,
+                               "dpf_eval_all": 4}
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in json.loads((VEC / "dpf.json").read_text())["cases"]
+             if c["prg"] == "chacha"],
+    ids=lambda c: f"{c['group']}-{c['in_bits']}")
+def test_golden_on_cuda(case, cuda):
+    def hexw(h):
+        return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
+
+    g = {"bytes": groups.Bytes(), "uint32": groups.Uint(32),
+         "uint64": groups.Uint(64),
+         "uint127": groups.Uint(128, 1 << 127)}[case["group"]]
+    d = Dpf(case["in_bits"], g, ChaCha(2, (case["nonce_lo"],
+                                           case["nonce_hi"])), device=cuda)
+    s0s = np.stack([hexw(h) for h in case["s0s"]])
+    cws = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
+    assert blk.to_numpy(cws).tobytes() == np.stack(
+        [hexw(r) for r in case["cws"]]).tobytes()
+    xs = [int(x, 0) for x in case["xs"]]
+    for party in (0, 1):
+        ys = blk.to_numpy(d.eval(party, s0s[party], cws, xs)).tobytes()
+        assert ys == b"".join(bytes.fromhex(h) for h in case[f"ys{party}"])
+        if "eval_all_digest0" in case:
+            full = blk.to_numpy(d.eval_all(party, s0s[party], cws)).tobytes()
+            assert hashlib.sha256(full).hexdigest() == \
+                case[f"eval_all_digest{party}"]
