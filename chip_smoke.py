@@ -8,13 +8,19 @@ Phases, each printing one line (any failure exits non-zero):
   1. device: the card's name, power limit and clocks;
   2. build: nvcc builds every kernel from csrc/ (registers and spills);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, byte-exact (tolerance 0: integer crypto);
-  4. golden: the reference's ChaCha DPF vectors through Dpf("cuda");
-  5. main path at full size: batched DPF Gen of 2^20 keys over a 16-bit
-     domain (Uint(32), ChaCha mul=2), Eval of both parties, reconstruction
-     of every key, a 4096-key sample against the plain version; then
-     EvalAll of one key at 20 and 24 bits, reconstructed over the domain.
-     Launch counts are zeroed before and read after this phase;
+     card, byte-exact (tolerance 0: integer crypto); the DCF kernels in
+     each of their five accumulator modes;
+  4. golden: the reference's ChaCha DPF and DCF vectors through
+     Dpf("cuda") and Dcf("cuda");
+  5. main paths at full size, each with the launch counts zeroed just
+     before it and read just after:
+     - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
+       ChaCha mul=2), Eval of both parties, reconstruction of every key, a
+       4096-key sample against the plain version; then EvalAll of one key
+       at 20 and 24 bits, reconstructed over the domain;
+     - DCF: the same for Dcf(16, Uint(32), ChaCha mul=4, "lt"): 2^20 keys,
+       x below, at and above alpha, every key reconstructed to
+       beta * (x < alpha); EvalAll at 20 and 24 bits;
   6. timing: CUDA-event times of each kernel and of the entry points at
      the main-path shapes, beside the bound of the same work.
 
@@ -36,11 +42,16 @@ import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
-GOLDEN = REPO / "tests" / "golden" / "vectors" / "dpf.json"
+GOLDEN = REPO / "tests" / "golden" / "vectors"
 NONCE = (0x0F0F0F0F, 0xF0F0F0F0)
 MAIN_BITS = 16
 MAIN_LOG2_KEYS = 20
 EVAL_ALL_BITS = (20, 24)
+DCF_MAIN_LOG2_KEYS = 20
+DCF_EVAL_ALL_BITS = (20, 24)
+CHECK_EVAL_ALL_BITS = (8, 16, 20)  # EvalAll domains of the kernel checks
+DPF_SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
+DCF_SOURCES = ("dcf_eval", "dcf_gen", "dcf_eval_all")
 SAMPLE = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Peak 32-bit ALU ops: each of an SM's 4 schedulers dispatches one 32-lane
@@ -90,6 +101,23 @@ def same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def ptxas_usage(text: str) -> dict:
+    """``ptxas -v`` output -> {kernel<template args>: [registers, spill
+    store bytes]} for each entry function."""
+    usage = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        kernel = re.search(r"([a-z]+_[a-z_]*_kernel)", mangled)
+        args = re.findall(r"L[ib](\d+)E", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        key = (kernel.group(1) if kernel else mangled) + (
+            f"<{','.join(args)}>" if args else "")
+        usage[key] = [int(regs.group(1)) if regs else None,
+                      int(spill.group(1)) if spill else None]
+    return usage
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -97,9 +125,10 @@ def main() -> int:
     from fss_tpu_torch import _build
     from fss_tpu_torch import block as blk
     from fss_tpu_torch import groups
-    from fss_tpu_torch.api import Dpf
-    from fss_tpu_torch.ops import dpf_cuda, eval_all_cuda
+    from fss_tpu_torch.api import Dcf, Dpf
+    from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda
     from fss_tpu_torch.prg.chacha import ChaCha
+    from fss_tpu_torch.schemes import dcf as plain_dcf
     from fss_tpu_torch.schemes import dpf as plain_dpf
 
     dev = torch.device("cuda")
@@ -127,12 +156,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build()
     build_s = time.perf_counter() - t0
-    usage = {}
-    for name, text in reports.items():
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(s) for s in re.findall(
-            r"(\d+) bytes spill stores", text)]
-        usage[name] = {"registers": regs, "spill_store_bytes": spills}
+    usage = {name: ptxas_usage(text) for name, text in reports.items()}
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage)
 
     # 3. kernels vs plain versions ----------------------------------------
@@ -181,7 +205,7 @@ def main() -> int:
                                              layout=layout)
             checks.append((f"dpf_gen n={n} {layout}", same(got, want)))
     prg = ChaCha(2, NONCE)
-    for n in (8, 16, 20):
+    for n in CHECK_EVAL_ALL_BITS:
         g = groups.Uint(128, 1 << 127)
         s0s, beta = words((1, 2, 4)), words((1, 4))
         cws = plain_dpf.gen(prg, g, n, s0s,
@@ -192,6 +216,57 @@ def main() -> int:
             want = plain_dpf.eval_all(prg, g, n, party, s0s[0, party], cws)
             checks.append((f"dpf_eval_all n={n} party={party}",
                            same(got, want)))
+
+    # One group per accumulator mode of the DCF kernels.
+    dcf_groups = {"xor": groups.Bytes(), "wrap": groups.Uint(32),
+                  "mod64": groups.Uint(64, (1 << 61) - 1),
+                  "mod128": groups.Uint(128, 1 << 127),
+                  "mod128np": groups.Uint(128, (1 << 127) - 1)}
+    for mode, g in dcf_groups.items():
+        vmask = dcf_cuda.value_mask(g)
+        for n in (16, 128):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            alphas = domain(words((B, 4)), n)
+            xs = alphas.clone()
+            xs[1::2, 0] ^= 1
+            xs = kernel_inputs(xs, n)
+            wire = dcf_cuda.gen_batch(NONCE, g, n, "lt", s0s,
+                                      kernel_inputs(alphas, n), betas)
+            cases = {
+                "wire": (s0s[:, 1].contiguous(), wire),
+                "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous()),
+            }
+            for label, (s0, cws) in cases.items():
+                got = dcf_cuda.eval_packed(s0, cws, xs, n, 1, NONCE, mode,
+                                           vmask)
+                want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, 1, NONCE,
+                                                  mode, vmask)
+                checks.append((f"dcf_eval {mode} n={n} {label}",
+                               same(got, want)))
+        for n in (16, 48):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            alphas = kernel_inputs(domain(words((B, 4)), n), n)
+            for pred in ("lt", "gt"):
+                got = dcf_cuda.gen_packed(s0s, alphas, betas, n, NONCE, pred,
+                                          g)
+                want = dcf_cuda.gen_packed_plain(s0s, alphas, betas, n,
+                                                 NONCE, pred, g)
+                checks.append((f"dcf_gen {mode} n={n} {pred}",
+                               same(got, want)))
+    prg4 = ChaCha(4, NONCE)
+    for mode in ("wrap", "xor", "mod128np"):
+        g = dcf_groups[mode]
+        for n in CHECK_EVAL_ALL_BITS:
+            s0s, beta = words((1, 2, 4)), words((1, 4))
+            cws = plain_dcf.gen(prg4, g, n, "lt", s0s, blk.pack_inputs(
+                [int(rng.integers(0, 2**n))], n, dev), beta)[0]
+            for party in (0, 1):
+                got = eval_all_cuda.dcf_eval_all(prg4, g, n, party,
+                                                 s0s[0, party], cws)
+                want = plain_dcf.eval_all(prg4, g, n, party, s0s[0, party],
+                                          cws)
+                checks.append((f"dcf_eval_all {mode} n={n} party={party}",
+                               same(got, want)))
     torch.cuda.synchronize()
     bad = [name for name, ok in checks if not ok]
     log("kernels", checked=len(checks), mismatches=bad)
@@ -199,11 +274,10 @@ def main() -> int:
         return 1
 
     # 4. golden vectors on the card ---------------------------------------
-    golden = [c for c in json.loads(GOLDEN.read_text())["cases"]
-              if c["prg"] == "chacha"]
     gmap = {"bytes": groups.Bytes(), "uint32": groups.Uint(32),
             "uint64": groups.Uint(64),
-            "uint127": groups.Uint(128, 1 << 127)}
+            "uint127": groups.Uint(128, 1 << 127),
+            "uint127m": groups.Uint(128, (1 << 127) - 1)}
 
     def hexw(h):
         return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
@@ -211,12 +285,14 @@ def main() -> int:
     def raw(t):
         return blk.to_numpy(t).tobytes()
 
-    failures = []
-    for case in golden:
+    def golden_case(scheme, case, failures):
         n = case["in_bits"]
-        tag = f"{case['group']}-{n}"
-        d = Dpf(n, gmap[case["group"]],
-                ChaCha(2, (case["nonce_lo"], case["nonce_hi"])))
+        nonce = (case["nonce_lo"], case["nonce_hi"])
+        if scheme == "dpf":
+            d = Dpf(n, gmap[case["group"]], ChaCha(2, nonce))
+        else:
+            d = Dcf(n, gmap[case["group"]], ChaCha(4, nonce), case["pred"])
+        tag = f"{scheme} {case['group']}-{n}-{case.get('pred', '')}"
         s0s = np.stack([hexw(h) for h in case["s0s"]])
         cws = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
         if raw(cws) != np.stack([hexw(r) for r in case["cws"]]).tobytes():
@@ -232,11 +308,21 @@ def main() -> int:
                 if (hashlib.sha256(full).hexdigest()
                         != case[f"eval_all_digest{party}"]):
                     failures.append(f"{tag} eval_all party{party}")
-    log("golden", cases=len(golden), failures=failures)
-    if failures or len(golden) != 6:
+
+    failures, counts = [], {}
+    for scheme in ("dpf", "dcf"):
+        golden = [c for c in json.loads((GOLDEN / f"{scheme}.json")
+                                        .read_text())["cases"]
+                  if c["prg"] == "chacha"]
+        counts[scheme] = len(golden)
+        for case in golden:
+            golden_case(scheme, case, failures)
+    log("golden", cases=counts, failures=failures)
+    if failures or counts != {"dpf": 6, "dcf": 6}:
         return 1
 
-    # 5. main path at full size -------------------------------------------
+    # 5. main paths at full size ------------------------------------------
+    # 5a. DPF
     nkeys = 1 << MAIN_LOG2_KEYS
     g = groups.Uint(32)
     d = Dpf(MAIN_BITS, g, ChaCha(2, NONCE))
@@ -265,7 +351,7 @@ def main() -> int:
                      ea_alpha % (1 << n))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches = {k: _build.launches[k] for k in DPF_SOURCES}
 
     want = torch.zeros_like(rec)
     want[0::2, 0] = betas[0::2, 0]
@@ -281,13 +367,79 @@ def main() -> int:
         expect = torch.zeros_like(r)
         expect[a, 0] = ea_beta[0]
         ea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
-    log("main_path", keys=nkeys, in_bits=MAIN_BITS, group=g.name,
-        seconds=round(main_s, 3), reconstruct_ok=rec_ok,
+    log("main_path", scheme="dpf", keys=nkeys, in_bits=MAIN_BITS,
+        group=g.name, seconds=round(main_s, 3), reconstruct_ok=rec_ok,
         sample_vs_plain_ok=sample_ok, eval_all_bits=list(EVAL_ALL_BITS),
         eval_all_ok=ea_ok, launches=launches)
     if not (rec_ok and sample_ok and ea_ok
             and all(v > 0 for v in launches.values())):
         return 1
+
+    # 5b. DCF: x below alpha on even keys, at or above it on odd ones.
+    dkeys = 1 << DCF_MAIN_LOG2_KEYS
+    dg = groups.Uint(32)
+    dd = Dcf(MAIN_BITS, dg, ChaCha(4, NONCE), "lt")
+    top = 1 << MAIN_BITS
+    ds0s, dbetas = words((dkeys, 2, 4)), words((dkeys, 4))
+    dalphas = words((dkeys,), MAIN_BITS).to(torch.int64)
+    dalphas[0::2] |= 1  # > 0, so some x lies below
+    dalphas[4] = 0
+    r = words((dkeys,), MAIN_BITS).to(torch.int64)
+    dxs = torch.where(torch.arange(dkeys, device=dev) % 2 == 0,
+                      r % dalphas.clamp(min=1),
+                      dalphas + r % (top - dalphas))
+    # x = 0 below alpha; x = alpha; x = 2^n - 1; x = alpha = 0 (key 4);
+    # x = alpha = 2^n - 1.
+    dxs[0], dxs[1], dxs[3] = 0, dalphas[1], top - 1
+    dalphas[5] = dxs[5] = top - 1
+    below = dxs < dalphas
+    dalphas, dxs = dalphas.to(torch.int32), dxs.to(torch.int32)
+    dn_ea = max(DCF_EVAL_ALL_BITS)
+    dea_seeds, dea_beta = words((2, 4)), words((4,))
+    dea_alpha = int(rng.integers(1, 2**dn_ea))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dcws = dd.gen_batch(ds0s, dalphas, dbetas)
+    dy0 = dd.eval(0, ds0s[:, 0].contiguous(), dcws, dxs)
+    dy1 = dd.eval(1, ds0s[:, 1].contiguous(), dcws, dxs)
+    drec = dg.add(dg.from_block(dy0), dg.from_block(dy1))
+    dea_rec, dea_dcf, dea_key = {}, {}, {}
+    for n in DCF_EVAL_ALL_BITS:
+        a = dea_alpha % (1 << n)
+        dea_dcf[n] = Dcf(n, dg, ChaCha(4, NONCE), "lt")
+        dea_key[n] = dea_dcf[n].gen(dea_seeds, a, dea_beta)
+        e0 = dea_dcf[n].eval_all(0, dea_seeds[0], dea_key[n])
+        e1 = dea_dcf[n].eval_all(1, dea_seeds[1], dea_key[n])
+        dea_rec[n] = (dg.add(dg.from_block(e0), dg.from_block(e1)), a)
+    torch.cuda.synchronize()
+    dmain_s = time.perf_counter() - t0
+    dlaunches = {k: _build.launches[k] for k in DCF_SOURCES}
+
+    want = torch.zeros_like(drec)
+    want[:, 0] = torch.where(below, dbetas[:, 0], 0)
+    drec_ok = torch.equal(drec, want)
+    dsample_ok = same(dcws[:SAMPLE], plain_dcf.gen(
+        dd.prg, dg, MAIN_BITS, "lt", ds0s[:SAMPLE],
+        blk.pack_inputs(dalphas[:SAMPLE], MAIN_BITS), dbetas[:SAMPLE]))
+    dsample_ok &= same(dy1[:SAMPLE], plain_dcf.eval_points(
+        dd.prg, dg, MAIN_BITS, 1, ds0s[:SAMPLE, 1], dcws[:SAMPLE],
+        blk.pack_inputs(dxs[:SAMPLE], MAIN_BITS)))
+    dea_ok = True
+    for n, (r, a) in dea_rec.items():
+        expect = torch.zeros_like(r)
+        expect[:a, 0] = dea_beta[0]
+        dea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
+    log("main_path", scheme="dcf", pred="lt", keys=dkeys, in_bits=MAIN_BITS,
+        group=dg.name, seconds=round(dmain_s, 3), reconstruct_ok=drec_ok,
+        x_below_alpha=int(below.sum()), sample_vs_plain_ok=dsample_ok,
+        eval_all_bits=list(DCF_EVAL_ALL_BITS), eval_all_ok=dea_ok,
+        launches=dlaunches)
+    if not (drec_ok and dsample_ok and dea_ok
+            and all(v > 0 for v in dlaunches.values())):
+        return 1
+    launches.update(dlaunches)
 
     # 6. timing at the main-path shapes -----------------------------------
     s0 = s0s[:, 0].contiguous()
@@ -301,6 +453,18 @@ def main() -> int:
     def plain_expand():
         return eval_all_cuda.expand_leaves(
             *expand_args, expand=eval_all_cuda.expand_packed_plain)
+
+    ds0 = ds0s[:, 0].contiguous()
+    dev_args = (ds0, dcws, dxs, MAIN_BITS, 0, NONCE, "wrap")
+    dgv = (ds0s, dalphas, dbetas, MAIN_BITS, NONCE, "lt", dg)
+    dexpand_args = (dd.prg, dn_ea, 0, dea_seeds[0], dea_key[dn_ea], "wrap")
+
+    def dcf_kernel_expand():
+        return eval_all_cuda.dcf_expand_leaves(*dexpand_args)
+
+    def dcf_plain_expand():
+        return eval_all_cuda.dcf_expand_leaves(
+            *dexpand_args, expand=eval_all_cuda.dcf_expand_packed_plain)
 
     kernels = [
         ("dpf_eval", "fss_tpu_torch/csrc/dpf_eval.cu",
@@ -320,6 +484,27 @@ def main() -> int:
          kernel_expand, plain_expand,
          ((1 << n_ea) - 1) * CHACHA_OPS,
          16 + n_ea * 20 + (1 << n_ea) * (16 + 4)),
+        # seeds 16 B, cw rows 32 B a level, x 4 B in; acc, seed 16 B and
+        # t 4 B out.
+        ("dcf_eval", "fss_tpu_torch/csrc/dcf_eval.cu",
+         "fss_tpu/ops/dcf_pallas.py:255",
+         lambda: dcf_cuda.eval_packed(*dev_args),
+         lambda: dcf_cuda.eval_packed_plain(*dev_args),
+         dkeys * MAIN_BITS * CHACHA_OPS,
+         dkeys * (16 + MAIN_BITS * 32 + 4 + 16 + 16 + 4)),
+        # seeds 32 B, alpha 4 B, beta 16 B in; n + 1 rows of 32 B out.
+        ("dcf_gen", "fss_tpu_torch/csrc/dcf_gen.cu",
+         "fss_tpu/ops/dcf_pallas.py:531",
+         lambda: dcf_cuda.gen_packed(*dgv),
+         lambda: dcf_cuda.gen_packed_plain(*dgv),
+         dkeys * MAIN_BITS * 2 * CHACHA_OPS,
+         dkeys * (32 + 4 + 16 + (MAIN_BITS + 1) * 32)),
+        # root and cw rows in; each leaf's seed, t and acc out.
+        ("dcf_eval_all", "fss_tpu_torch/csrc/dcf_eval_all.cu",
+         "fss_tpu/ops/eval_all_pallas.py:262",
+         dcf_kernel_expand, dcf_plain_expand,
+         ((1 << dn_ea) - 1) * CHACHA_OPS,
+         16 + 16 + dn_ea * 32 + (1 << dn_ea) * (16 + 4 + 16)),
     ]
     rows = []
     for name, src, replaces, kern, plain, ops, nbytes in kernels:
@@ -348,6 +533,22 @@ def main() -> int:
         eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
                               for n, ms in ea_ms.items()},
         eval_all_ms=ea_ms,
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+    dgen_ms = cuda_ms(lambda: dd.gen_batch(ds0s, dalphas, dbetas), 10)
+    deval_ms = cuda_ms(lambda: dd.eval(0, ds0, dcws, dxs), 10)
+    dea_ms = {n: cuda_ms(lambda n=n: dea_dcf[n].eval_all(0, dea_seeds[0],
+                                                         dea_key[n]), 5)
+              for n in DCF_EVAL_ALL_BITS}
+    log("timing", scheme="dcf", card=kind,
+        power_limit=smi.split(",")[-1].strip(),
+        dcf_gen_keys_per_s=dkeys / (dgen_ms / 1e3), dcf_gen_ms=dgen_ms,
+        dcf_gen_bound_ms=rows[4]["bound_ms"],
+        dcf_eval_per_s=dkeys / (deval_ms / 1e3), dcf_eval_ms=deval_ms,
+        dcf_eval_bound_ms=rows[3]["bound_ms"],
+        dcf_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
+                                  for n, ms in dea_ms.items()},
+        dcf_eval_all_ms=dea_ms,
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
 

@@ -1,12 +1,13 @@
-"""High-level DPF API on PyTorch tensors.
+"""High-level DPF and DCF API on PyTorch tensors.
 
-Counterpart of ``fss_tpu.api`` for the DPF scheme (``Dpf``,
-``PackedDpfKeys``, ``DEFAULT_NONCE``). Entry points run on the card
-unless the caller asks for the CPU: ``Dpf(..., device="cuda")`` is the
+Counterpart of ``fss_tpu.api`` for the DPF and DCF schemes (``Dpf``,
+``PackedDpfKeys``, ``Dcf``, ``DEFAULT_NONCE``). Entry points run on the
+card unless the caller asks for the CPU: ``device="cuda"`` is the
 default, and inputs given as ints, lists, numpy arrays or tensors are
-moved to ``Dpf.device``. On a CUDA device every Gen, Eval and EvalAll goes
-through the CUDA kernels of ``fss_tpu_torch.ops``; on the CPU through
-their plain PyTorch versions. There is no fallback between the two.
+moved to the scheme's ``device``. On a CUDA device every Gen, Eval and
+EvalAll goes through the CUDA kernels of ``fss_tpu_torch.ops``, for every
+group and every ``in_bits`` in 1..128; on the CPU through their plain
+PyTorch versions. There is no fallback between the two.
 
 Keys and shares are int32 tensors bit-identical to the reference's int32
 tensors and to the JAX package's uint32 arrays.
@@ -21,7 +22,7 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.ops import dpf_cuda, eval_all_cuda
+from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 
 DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
@@ -56,22 +57,22 @@ class PackedDpfKeys(typing.NamedTuple):
         return cls(*dpf_cuda.pack_keys(cws, in_bits))
 
 
-class Dpf:
-    """2-party DPF with the ChaCha PRG.
+class _TreeScheme:
+    """What Dpf and Dcf share: the domain, group, ChaCha PRG with
+    ``MUL`` outputs, device, and the staging of inputs."""
 
-    Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
-    """
+    MUL = 0
 
-    def __init__(self, in_bits: int, group=None, prg=None,
-                 device="cuda"):
+    def __init__(self, in_bits: int, group=None, prg=None, device="cuda"):
         if not 1 <= in_bits <= 128:
             raise ValueError(f"in_bits must be in 1..128, got {in_bits}")
         self.in_bits = in_bits
         self.group = group if group is not None else groups.Bytes()
-        self.prg = prg if prg is not None else ChaCha(mul=2,
+        self.prg = prg if prg is not None else ChaCha(mul=self.MUL,
                                                       nonce=DEFAULT_NONCE)
-        if not isinstance(self.prg, ChaCha) or self.prg.mul != 2:
-            raise ValueError("Dpf needs the ChaCha PRG with mul=2")
+        if not isinstance(self.prg, ChaCha) or self.prg.mul != self.MUL:
+            raise ValueError(f"{type(self).__name__} needs the ChaCha PRG "
+                             f"with mul={self.MUL}")
         self.device = torch.device(device)
 
     # -- input staging ----------------------------------------------------
@@ -89,15 +90,24 @@ class Dpf:
         lanes = blk.pack_inputs(xs, self.in_bits, self.device)
         return lanes.reshape(-1, 4).contiguous()
 
-    # -- scheme -------------------------------------------------------------
-
     def gen(self, s0s, alpha, beta) -> torch.Tensor:
         """One key: s0s [2, 4], alpha an int (or lanes), beta [4].
-        Returns cws [in_bits+1, 8]."""
-        return self.gen_batch(self._blocks(s0s)[None],
-                              blk.pack_inputs(alpha, self.in_bits,
-                                              self.device).reshape(1, 4),
+        Returns cws [in_bits+1, 8] through ``gen_batch``."""
+        alpha = blk.pack_inputs(alpha, self.in_bits,
+                                self.device).reshape(1, 4)
+        return self.gen_batch(self._blocks(s0s)[None], alpha,
                               self._blocks(beta)[None])[0]
+
+
+class Dpf(_TreeScheme):
+    """2-party DPF with the ChaCha PRG (mul=2).
+
+    Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
+    """
+
+    MUL = 2
+
+    # -- scheme -------------------------------------------------------------
 
     def gen_batch(self, s0s, alphas, betas, layout: str = "wire"):
         """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
@@ -140,3 +150,46 @@ class Dpf:
         return eval_all_cuda.eval_all(self.prg, self.group, self.in_bits,
                                       int(party), self._blocks(s0),
                                       self._blocks(cws))
+
+
+class Dcf(_TreeScheme):
+    """2-party DCF with the ChaCha PRG (mul=4): y0 + y1 = beta where
+    x < alpha (``pred="lt"``) or x > alpha (``pred="gt"``), else 0.
+
+    Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
+    """
+
+    MUL = 4
+
+    def __init__(self, in_bits: int, group=None, prg=None, pred: str = "lt",
+                 device="cuda"):
+        super().__init__(in_bits, group, prg, device)
+        if pred not in ("lt", "gt"):
+            raise ValueError(f"pred must be 'lt' or 'gt', got {pred!r}")
+        self.pred = pred
+
+    def gen_batch(self, s0s, alphas, betas) -> torch.Tensor:
+        """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
+        (or [B, 4] lanes, or a list of ints), betas [B, 4]. Returns wire
+        rows cws [B, in_bits+1, 8]."""
+        return dcf_cuda.gen_batch(self.prg.nonce, self.group, self.in_bits,
+                                  self.pred, self._blocks(s0s),
+                                  self._inputs(alphas), self._blocks(betas),
+                                  rounds=self.prg.rounds)
+
+    def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
+        """Point evaluation. s0 [B, 4] or [4]; cws wire rows
+        [B, in_bits+1, 8] or one key [in_bits+1, 8]; xs ints, an int
+        array, or [B, 4] lanes. Returns [B, 4] shares ([4] for a single int
+        x)."""
+        y = dcf_cuda.eval_points(self.prg.nonce, self.group, self.in_bits,
+                                 int(party), self._blocks(s0),
+                                 self._blocks(cws), self._inputs(xs),
+                                 rounds=self.prg.rounds)
+        return y[0] if isinstance(xs, (int, np.integer)) else y
+
+    def eval_all(self, party: int, s0, cws) -> torch.Tensor:
+        """Full-domain evaluation of one key: [2^in_bits, 4] shares."""
+        return eval_all_cuda.dcf_eval_all(self.prg, self.group, self.in_bits,
+                                          int(party), self._blocks(s0),
+                                          self._blocks(cws))

@@ -1,0 +1,149 @@
+// Batched DCF point evaluation: one thread per key walks every tree level
+// in registers and accumulates the path value.
+//
+// Replaces fss_tpu/ops/dcf_pallas.py:eval_packed (_make_kernel). Per
+// level: ChaCha mul=4 of the seed gives (s_l, v_l, s_r, v_r); the control
+// bits come from the clamped bits of s_l and s_r, which are cleared, as are
+// those of v_l and v_r; the seed CW (row words 0-3) is XORed into both
+// children under the mask (0 - t); then v += (x ? v_r : v_l) + (t ? v_cw : 0)
+// in the group's accumulator mode (dcf_acc.cuh), with v_cw = row words 4-7
+// and its clamped bit (tr_cw) clear. The child is chosen by bit
+// (in_bits-1-i) of x, read from lane (pos >> 5) so domains of 33..128 bits
+// take x as 4 lanes (template parameter kWide: otherwise x is one word).
+//
+// Bound on the H100: 32-bit ALU instruction dispatch. A level is one 960-op
+// ChaCha block plus ~30 ops of correction, selection and accumulation,
+// against 32 bytes of cw read; at 2^20 keys x 16 levels that is ~1.6e10 ops
+// (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) but ~0.54 GB (~0.16 ms at
+// 3.35 TB/s). As in dpf_eval.cu, the ChaCha state, the seed, t and the
+// accumulator stay in registers for the whole walk so nothing but the key
+// bytes touches memory. The cw is addressed through three strides (level,
+// word, key), so the kernel streams wire rows [B, n+1, 8] in place or one
+// broadcast key (key stride 0).
+
+#include <cuda_runtime.h>
+
+#include "chacha.cuh"
+#include "dcf_acc.cuh"
+
+namespace {
+
+template <bool kWide, int M>
+__global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
+                                int64_t seed_ks,
+                                const uint32_t* __restrict__ cws,
+                                int64_t cw_ls, int64_t cw_ws, int64_t cw_ks,
+                                const uint32_t* __restrict__ xs,
+                                uint32_t* __restrict__ vo,
+                                int4* __restrict__ so,
+                                int32_t* __restrict__ t_out, int64_t batch,
+                                int in_bits, int party, uint4 vmask4,
+                                uint32_t n0, uint32_t n1, int rounds) {
+  constexpr int kAcc = fss::Acc<M>::kWords;
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= batch) return;
+  const uint32_t vmask[4] = {vmask4.x, vmask4.y, vmask4.z, vmask4.w};
+  const uint32_t* sp = seeds + k * seed_ks;
+  uint32_t s[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2),
+                   __ldg(sp + 3) & ~1u};
+  uint32_t t = (uint32_t)party;
+  uint32_t acc[kAcc];
+#pragma unroll
+  for (int w = 0; w < kAcc; ++w) acc[w] = 0u;
+  const uint32_t* key = cws + k * cw_ks;
+  const uint32_t* x = xs + k * (kWide ? 4 : 1);
+  const uint32_t x0 = kWide ? 0u : __ldg(x);
+
+  for (int i = 0; i < in_bits; ++i) {
+    uint32_t o[4][4];
+    fss::chacha4(s, n0, n1, rounds, o);
+    const uint32_t* c = key + i * cw_ls;
+    uint32_t cw[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) cw[w] = __ldg(c + w * cw_ws);
+    const uint32_t tm = 0u - t;
+    const uint32_t tl = (o[0][3] & 1u) ^ (t & cw[3] & 1u);
+    const uint32_t tr = (o[2][3] & 1u) ^ (t & cw[7] & 1u);
+    const int pos = in_bits - 1 - i;
+    const bool bit =
+        ((kWide ? __ldg(x + (pos >> 5)) : x0) >> (pos & 31)) & 1u;
+
+    // v += (x ? v_r : v_l) + (t ? v_cw : 0), clamped bits clear.
+    uint32_t step[4], vcm[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      step[w] = bit ? o[3][w] : o[1][w];
+      vcm[w] = cw[4 + w] & tm;
+    }
+    step[3] &= ~1u;
+    vcm[3] &= ~1u;
+    fss::accumulate<M>(acc, step, vmask);
+    fss::accumulate<M>(acc, vcm, vmask);
+
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      s[w] = (bit ? o[2][w] : o[0][w]) ^ (cw[w] & tm);
+    }
+    s[3] &= ~1u;
+    t = bit ? tr : tl;
+  }
+#pragma unroll
+  for (int w = 0; w < kAcc; ++w) vo[k * kAcc + w] = acc[w];
+  so[k] = make_int4((int)s[0], (int)s[1], (int)s[2], (int)s[3]);
+  t_out[k] = (int32_t)t;
+}
+
+template <bool kWide, int M>
+void launch(const void* seeds, int64_t seed_ks, const void* cws,
+            int64_t cw_ls, int64_t cw_ws, int64_t cw_ks, const void* xs,
+            void* vo, void* so, void* t_out, int64_t batch, int in_bits,
+            int party, uint4 vmask, uint32_t n0, uint32_t n1, int rounds,
+            cudaStream_t stream) {
+  const int threads = 128;
+  const int64_t blocks = (batch + threads - 1) / threads;
+  dcf_eval_kernel<kWide, M><<<(unsigned)blocks, threads, 0, stream>>>(
+      (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
+      cw_ks, (const uint32_t*)xs, (uint32_t*)vo, (int4*)so, (int32_t*)t_out,
+      batch, in_bits, party, vmask, n0, n1, rounds);
+}
+
+}  // namespace
+
+// seeds: [B, 4] (seed_ks = 4) or one broadcast seed (seed_ks = 0).
+// cws: word w of level i of key k at cws[i * cw_ls + w * cw_ws + k * cw_ks].
+// xs: [B] words (wide = 0, in_bits <= 32) or [B, 4] lanes (wide = 1).
+// mode: fss::Mode; vmask0..3: the contribution mask of kMod64 / kMod128*.
+// vo: [B, 5] for kMod128np, else [B, 4]; so: [B, 4] final seeds (clamped
+// bit clear); t_out: [B] control bits.
+extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
+                            const void* cws, int64_t cw_ls, int64_t cw_ws,
+                            int64_t cw_ks, const void* xs, int wide, void* vo,
+                            void* so, void* t_out, int64_t batch, int in_bits,
+                            int party, int mode, uint32_t vmask0,
+                            uint32_t vmask1, uint32_t vmask2, uint32_t vmask3,
+                            uint32_t n0, uint32_t n1, int rounds,
+                            void* stream) {
+  if (batch <= 0) return 0;
+  const uint4 vmask = make_uint4(vmask0, vmask1, vmask2, vmask3);
+  cudaStream_t st = (cudaStream_t)stream;
+#define FSS_DCF_EVAL(W, M)                                                  \
+  launch<W, M>(seeds, seed_ks, cws, cw_ls, cw_ws, cw_ks, xs, vo, so, t_out, \
+               batch, in_bits, party, vmask, n0, n1, rounds, st)
+#define FSS_DCF_EVAL_MODES(W)                           \
+  switch (mode) {                                       \
+    case fss::kXor: FSS_DCF_EVAL(W, fss::kXor); break;  \
+    case fss::kWrap: FSS_DCF_EVAL(W, fss::kWrap); break; \
+    case fss::kMod64: FSS_DCF_EVAL(W, fss::kMod64); break; \
+    case fss::kMod128: FSS_DCF_EVAL(W, fss::kMod128); break; \
+    case fss::kMod128np: FSS_DCF_EVAL(W, fss::kMod128np); break; \
+    default: return (int)cudaErrorInvalidValue;         \
+  }
+  if (wide) {
+    FSS_DCF_EVAL_MODES(true)
+  } else {
+    FSS_DCF_EVAL_MODES(false)
+  }
+#undef FSS_DCF_EVAL_MODES
+#undef FSS_DCF_EVAL
+  return (int)cudaGetLastError();
+}

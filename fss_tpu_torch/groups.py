@@ -101,19 +101,41 @@ def _shl1(lanes, carry_in):
     return out, carry_in
 
 
-def _mod_reduce(a: torch.Tensor, mod: int, a_bits: int) -> torch.Tensor:
-    """a % mod for a < 2^a_bits, by MSB-first shift-subtract division."""
-    # Pre-shift so the loop runs only a_bits iterations.
-    shift_up = 128 - a_bits
-    val = _lanes(a)
-    words, bits = divmod(shift_up, 32)
-    val = [torch.zeros_like(val[0])] * words + val[:4 - words]
+def _shl128(lanes, k: int):
+    """4 lanes << k for 0 <= k <= 128, wrapping at 2^128."""
+    words, bits = divmod(k, 32)
+    zero = torch.zeros_like(lanes[0])
+    out = [zero] * words + lanes[:4 - words]
     if bits:
-        val = [((x << bits) & MASK32) | (lo >> (32 - bits))
-               for x, lo in zip(val, [torch.zeros_like(val[0])] + val[:3])]
+        out = [((x << bits) & MASK32) | (lo >> (32 - bits))
+               for x, lo in zip(out, [zero] + out[:3])]
+    return out
+
+
+def _shr128(lanes, k: int):
+    """4 lanes >> k for 0 <= k <= 128."""
+    words, bits = divmod(k, 32)
+    zero = torch.zeros_like(lanes[0])
+    out = lanes[words:] + [zero] * words
+    if bits:
+        out = [(x >> bits) | ((hi << (32 - bits)) & MASK32)
+               for x, hi in zip(out, out[1:] + [zero])]
+    return out
+
+
+def _mod_reduce(a: torch.Tensor, mod: int, a_bits: int) -> torch.Tensor:
+    """a % mod for a < 2^a_bits, by MSB-first shift-subtract division.
+
+    The top ``mod.bit_length() - 1`` bits of a, read as a number, are below
+    mod, so they are the remainder before the first subtraction; the loop
+    runs only over the bits below them (2 steps, not 128, for a 127-bit
+    modulus)."""
+    steps = a_bits - min(mod.bit_length() - 1, a_bits)
+    lanes = _lanes(a)
+    r = _stack(_shr128(lanes, steps))
+    val = _shl128(lanes, 128 - steps)  # the remaining bits, at the top
     mod_t = _const128(mod, a)
-    r = torch.zeros_like(a)
-    for _ in range(a_bits):
+    for _ in range(steps):
         val, msb = _shl1(val, 0)
         r_lanes, _ = _shl1(_lanes(r), msb)
         r = _stack(r_lanes)

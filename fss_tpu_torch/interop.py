@@ -15,7 +15,7 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.api import Dpf, PackedDpfKeys
+from fss_tpu_torch.api import Dcf, Dpf, PackedDpfKeys
 from fss_tpu_torch.prg.chacha import ChaCha
 
 LANES = 128  # key lanes per row of the JAX package's packed planes
@@ -63,10 +63,26 @@ def dpf_config(in_bits: int, group, prg) -> dict:
     return cfg
 
 
-def dpf_from_config(cfg: dict, device="cuda") -> Dpf:
-    """The port's Dpf for a configuration made by :func:`dpf_config`."""
+def _scheme_args(cfg: dict, mul: int) -> dict:
     group = (groups.Bytes() if cfg["group"] == "bytes"
              else groups.Uint(cfg["bits"], cfg.get("mod", 0)))
-    prg = ChaCha(mul=2, nonce=tuple(cfg["nonce"]),
+    prg = ChaCha(mul=mul, nonce=tuple(cfg["nonce"]),
                  rounds=cfg.get("rounds", 20))
-    return Dpf(cfg["in_bits"], group=group, prg=prg, device=device)
+    return {"group": group, "prg": prg}
+
+
+def dpf_from_config(cfg: dict, device="cuda") -> Dpf:
+    """The port's Dpf for a configuration made by :func:`dpf_config`."""
+    return Dpf(cfg["in_bits"], device=device, **_scheme_args(cfg, 2))
+
+
+def dcf_config(in_bits: int, group, prg, pred: str = "lt") -> dict:
+    """A DCF configuration as plain values: :func:`dpf_config`'s fields
+    and the predicate."""
+    return {**dpf_config(in_bits, group, prg), "pred": pred}
+
+
+def dcf_from_config(cfg: dict, device="cuda") -> Dcf:
+    """The port's Dcf for a configuration made by :func:`dcf_config`."""
+    return Dcf(cfg["in_bits"], pred=cfg.get("pred", "lt"), device=device,
+               **_scheme_args(cfg, 4))

@@ -1,9 +1,11 @@
-"""DPF full-domain evaluation (EvalAll) on the card: wrapper of the CUDA
-kernel ``csrc/dpf_eval_all.cu``.
+"""DPF and DCF full-domain evaluation (EvalAll) on the card: wrappers of
+the CUDA kernels ``csrc/dpf_eval_all.cu`` and ``csrc/dcf_eval_all.cu``.
 
-Counterpart of the DPF part of ``fss_tpu.ops.eval_all_pallas``; the
-kernel replaces ``eval_all_pallas._expand_packed``. Nodes are packed
-(s, t) [N, 4] int32 blocks with t in the clamped bit.
+Counterpart of ``fss_tpu.ops.eval_all_pallas``; the kernels replace
+``eval_all_pallas._expand_packed`` and ``eval_all_pallas.dcf_eval_all``.
+Nodes are packed (s, t) [N, 4] int32 blocks with t in the clamped bit; a
+DCF node also carries its raw value accumulator [N, 4 or 5]
+(``ops/dcf_cuda.py``).
 
 Split: every level runs through the kernel, the root's first, in launches
 of up to ``LEVELS_PER_LAUNCH`` levels (the remainder first, so the last
@@ -14,7 +16,8 @@ stride costs a few microseconds at any width. The last launch writes the
 seeds with the clamped bit cleared and the t bits as their own plane.
 
 CUDA tensors go to the kernel (a failing build or launch raises), CPU
-tensors to the plain PyTorch version :func:`expand_packed_plain`.
+tensors to the plain PyTorch versions :func:`expand_packed_plain` and
+:func:`dcf_expand_packed_plain`.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ import torch
 
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
+from fss_tpu_torch.block import i32, u64
+from fss_tpu_torch.ops import dcf_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import _tree
+from fss_tpu_torch.schemes import dcf as _dcf
 from fss_tpu_torch.schemes import dpf as _dpf
 
 LEVELS_PER_LAUNCH = 3
@@ -32,15 +38,19 @@ LEVELS_PER_LAUNCH = 3
 _EXPAND_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
                 _build.I64, _build.INT, _build.U32, _build.U32, _build.INT,
                 _build.P)
+_DCF_EXPAND_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P,
+                    _build.P, _build.P, _build.I64, _build.INT, _build.INT,
+                    *(_build.U32,) * 4, _build.U32, _build.U32, _build.INT,
+                    _build.P)
 
 
-def _check(roots, cw_rows):
+def _check(roots, cw_rows, row_words=5):
     dev = roots.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     _build.check(roots, "roots", dev, [(roots.shape[0], 4)])
-    if cw_rows.dim() != 2 or cw_rows.shape[1] < 5:
-        raise ValueError(f"cw_rows must be [L, >=5], got "
+    if cw_rows.dim() != 2 or cw_rows.shape[1] < row_words:
+        raise ValueError(f"cw_rows must be [L, >={row_words}], got "
                          f"{tuple(cw_rows.shape)}")
     if cw_rows.device != dev or cw_rows.dtype != torch.int32:
         raise ValueError("cw_rows must be int32 on the roots' device")
@@ -51,6 +61,22 @@ def _check(roots, cw_rows):
                          f"{cw_rows.shape[0]}")
     return dev
 
+
+def _launch_levels(in_bits: int, party: int):
+    """The level ranges (start, stop) of each launch: the remainder first,
+    then strides of LEVELS_PER_LAUNCH."""
+    if in_bits < 1:
+        raise ValueError(f"EvalAll needs in_bits >= 1, got {in_bits}")
+    if party not in (0, 1):
+        raise ValueError(f"party must be 0 or 1, got {party}")
+    first = in_bits % LEVELS_PER_LAUNCH or LEVELS_PER_LAUNCH
+    return [(0, first)] + [(lvl, lvl + LEVELS_PER_LAUNCH) for lvl in
+                           range(first, in_bits, LEVELS_PER_LAUNCH)]
+
+
+# ---------------------------------------------------------------------------
+# DPF
+# ---------------------------------------------------------------------------
 
 def expand_packed(roots: torch.Tensor, cw_rows: torch.Tensor, nonce,
                   rounds: int = 20, final: bool = False):
@@ -93,18 +119,10 @@ def expand_leaves(prg2, in_bits: int, party: int, s0: torch.Tensor,
     """Expand one key to its leaf layer: (seeds [2^n, 4], t [2^n]) in x
     order. ``expand`` is the per-launch step (the plain version can be
     passed to time the same sequence without the kernel)."""
-    if in_bits < 1:
-        raise ValueError(f"EvalAll needs in_bits >= 1, got {in_bits}")
-    if party not in (0, 1):
-        raise ValueError(f"party must be 0 or 1, got {party}")
     nodes = blk.set_lsb(blk.clear_lsb(s0), party)[None, :].contiguous()
-    lvl = 0
-    step = in_bits % LEVELS_PER_LAUNCH or LEVELS_PER_LAUNCH
-    while lvl < in_bits:
-        nodes = expand(nodes, cws[lvl:lvl + step], prg2.nonce, prg2.rounds,
-                       final=lvl + step == in_bits)
-        lvl += step
-        step = LEVELS_PER_LAUNCH
+    for lo, hi in _launch_levels(in_bits, party):
+        nodes = expand(nodes, cws[lo:hi], prg2.nonce, prg2.rounds,
+                       final=hi == in_bits)
     return nodes
 
 
@@ -115,3 +133,94 @@ def eval_all(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
     drive the kernel."""
     s, t = expand_leaves(prg2, in_bits, party, s0, cws)
     return _dpf.finalize_leaves(group, party, s, t, cws[in_bits, 0:4])
+
+
+# ---------------------------------------------------------------------------
+# DCF
+# ---------------------------------------------------------------------------
+
+def _check_dcf(roots, acc, cw_rows, group_mode):
+    dev = _check(roots, cw_rows, row_words=8)
+    if group_mode not in dcf_cuda.MODES:
+        raise ValueError(f"group_mode must be one of {dcf_cuda.MODES}, got "
+                         f"{group_mode!r}")
+    _build.check(acc, "acc", dev,
+                 [(roots.shape[0], dcf_cuda.acc_words(group_mode))])
+    return dev
+
+
+def dcf_expand_packed(roots: torch.Tensor, acc: torch.Tensor,
+                      cw_rows: torch.Tensor, nonce, rounds: int = 20,
+                      group_mode: str = "wrap", vmask=dcf_cuda.FULL,
+                      final: bool = False):
+    """Expand DCF nodes by L = cw_rows.shape[0] levels (1..3).
+
+    roots [N, 4] packed (s, t); acc [N, 4 or 5] their raw accumulators;
+    cw_rows [L, 8] int32 cw rows of those levels; ``group_mode`` and
+    ``vmask`` as for ``dcf_cuda.eval_packed``. Returns (children
+    [N << L, 4] packed, acc [N << L, 4 or 5]) in x order, or with ``final``
+    (seeds [N << L, 4] with the clamped bit clear, t [N << L], acc).
+    """
+    dev = _check_dcf(roots, acc, cw_rows, group_mode)
+    if dev.type == "cpu":
+        return dcf_expand_packed_plain(roots, acc, cw_rows, nonce, rounds,
+                                       group_mode, vmask, final)
+    L = cw_rows.shape[0]
+    n = roots.shape[0] << L
+    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    acc_out = torch.empty((n, acc.shape[1]), dtype=torch.int32, device=dev)
+    t = torch.empty((n,), dtype=torch.int32, device=dev) if final else None
+    prg = ChaCha(4, nonce, rounds)  # validates rounds, masks the nonce
+    fn = _build.function("dcf_eval_all", "fss_dcf_expand", _DCF_EXPAND_ARGS)
+    _build.launch(
+        "dcf_eval_all", fn, roots.data_ptr(), acc.data_ptr(),
+        cw_rows.data_ptr(), cw_rows.stride(0), out.data_ptr(),
+        acc_out.data_ptr(), t.data_ptr() if final else None, roots.shape[0],
+        L, dcf_cuda.MODES.index(group_mode),
+        *(int(m) & blk.MASK32 for m in vmask), *prg.nonce, prg.rounds,
+        device=dev)
+    return (out, t, acc_out) if final else (out, acc_out)
+
+
+def dcf_expand_packed_plain(roots, acc, cw_rows, nonce, rounds: int = 20,
+                            group_mode: str = "wrap", vmask=dcf_cuda.FULL,
+                            final: bool = False):
+    """Plain PyTorch version of :func:`dcf_expand_packed`, on any
+    device."""
+    _check_dcf(roots, acc, cw_rows, group_mode)
+    prg4 = ChaCha(4, nonce, rounds)
+    add = dcf_cuda.accumulator(group_mode, vmask)
+    s, t = _tree.split_seed(roots)
+    v = u64(acc)
+    for row in cw_rows:
+        s, t, v = _dcf.expand_level(prg4, s, t, v, row, add)
+    return (s, t, i32(v)) if final else (blk.set_lsb(s, t), i32(v))
+
+
+def dcf_expand_leaves(prg4, in_bits: int, party: int, s0: torch.Tensor,
+                      cws: torch.Tensor, group_mode: str = "wrap",
+                      vmask=dcf_cuda.FULL, expand=dcf_expand_packed):
+    """Expand one DCF key to its leaf layer: (seeds [2^n, 4], t [2^n],
+    acc [2^n, 4 or 5]) in x order. ``expand`` is the per-launch step (the
+    plain version can be passed to time the same sequence without the
+    kernel)."""
+    nodes = blk.set_lsb(blk.clear_lsb(s0), party)[None, :].contiguous()
+    acc = torch.zeros((1, dcf_cuda.acc_words(group_mode)), dtype=torch.int32,
+                      device=nodes.device)
+    for lo, hi in _launch_levels(in_bits, party):
+        if hi == in_bits:
+            return expand(nodes, acc, cws[lo:hi], prg4.nonce, prg4.rounds,
+                          group_mode, vmask, final=True)
+        nodes, acc = expand(nodes, acc, cws[lo:hi], prg4.nonce, prg4.rounds,
+                            group_mode, vmask)
+
+
+def dcf_eval_all(prg4, group, in_bits: int, party: int, s0: torch.Tensor,
+                 cws: torch.Tensor) -> torch.Tensor:
+    """Full-domain DCF evaluation of one key: [2^in_bits, 4] shares in x
+    order, for every group. ``prg4`` is the ChaCha mul=4 PRG whose nonce
+    and rounds drive the kernel."""
+    s, t, acc = dcf_expand_leaves(prg4, in_bits, party, s0, cws,
+                                  dcf_cuda.group_mode(group),
+                                  dcf_cuda.value_mask(group))
+    return dcf_cuda.finalize(group, party, acc, s, t, cws[in_bits, 4:8])

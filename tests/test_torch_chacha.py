@@ -63,7 +63,9 @@ def test_chacha_rejects_bad_parameters():
 
 def test_port_imports_no_jax():
     code = ("import sys, fss_tpu_torch, fss_tpu_torch.api, "
-            "fss_tpu_torch.interop, fss_tpu_torch._build; "
+            "fss_tpu_torch.interop, fss_tpu_torch._build, "
+            "fss_tpu_torch.ops.dcf_cuda, fss_tpu_torch.ops.eval_all_cuda, "
+            "fss_tpu_torch.schemes.dcf; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fss_tpu' "
             "or m.startswith('fss_tpu.')]; assert not bad, bad")

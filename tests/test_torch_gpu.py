@@ -110,8 +110,8 @@ def test_kernels_count_launches(cuda):
     cws = d.gen(s0s, 5, [1, 0, 0, 0])
     d.eval(0, s0s[0], cws, [4, 5])
     d.eval_all(1, s0s[1], cws)
-    assert _build.launches == {"dpf_gen": 1, "dpf_eval": 1,
-                               "dpf_eval_all": 4}
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "dpf_gen": 1, "dpf_eval": 1, "dpf_eval_all": 4}
 
 
 @pytest.mark.parametrize(
