@@ -10,8 +10,8 @@ Phases, each printing one line (any failure exits non-zero):
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, byte-exact (tolerance 0: integer crypto); the DCF kernels in
      each of their five accumulator modes;
-  4. golden: the reference's ChaCha DPF and DCF vectors through
-     Dpf("cuda") and Dcf("cuda");
+  4. golden: the reference's ChaCha DPF, DCF and Half-Tree vectors through
+     Dpf("cuda"), Dcf("cuda") and HalfTreeDpf("cuda");
   5. main paths at full size, each with the launch counts zeroed just
      before it and read just after:
      - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
@@ -21,6 +21,9 @@ Phases, each printing one line (any failure exits non-zero):
      - DCF: the same for Dcf(16, Uint(32), ChaCha mul=4, "lt"): 2^20 keys,
        x below, at and above alpha, every key reconstructed to
        beta * (x < alpha); EvalAll at 20 and 24 bits;
+     - Half-Tree: the same for HalfTreeDpf(16, Uint(32), ChaCha mul=1) with
+       a random CCR hash key: 2^20 keys, half the x at alpha, every key
+       reconstructed; EvalAll at 20 and 24 bits;
   6. timing: CUDA-event times of each kernel and of the entry points at
      the main-path shapes, beside the bound of the same work.
 
@@ -49,9 +52,13 @@ MAIN_LOG2_KEYS = 20
 EVAL_ALL_BITS = (20, 24)
 DCF_MAIN_LOG2_KEYS = 20
 DCF_EVAL_ALL_BITS = (20, 24)
+HT_MAIN_LOG2_KEYS = 20
+HT_EVAL_ALL_BITS = (20, 24)
 CHECK_EVAL_ALL_BITS = (8, 16, 20)  # EvalAll domains of the kernel checks
+CHECK_HT_EVAL_ALL_BITS = (1, 8, 16, 20)
 DPF_SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
 DCF_SOURCES = ("dcf_eval", "dcf_gen", "dcf_eval_all")
+HT_SOURCES = ("ht_eval", "ht_gen", "ht_eval_all")
 SAMPLE = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Peak 32-bit ALU ops: each of an SM's 4 schedulers dispatches one 32-lane
@@ -125,11 +132,12 @@ def main() -> int:
     from fss_tpu_torch import _build
     from fss_tpu_torch import block as blk
     from fss_tpu_torch import groups
-    from fss_tpu_torch.api import Dcf, Dpf
-    from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda
+    from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf
+    from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda
     from fss_tpu_torch.prg.chacha import ChaCha
     from fss_tpu_torch.schemes import dcf as plain_dcf
     from fss_tpu_torch.schemes import dpf as plain_dpf
+    from fss_tpu_torch.schemes import half_tree_dpf as plain_ht
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(42)
@@ -267,6 +275,51 @@ def main() -> int:
                                           cws)
                 checks.append((f"dcf_eval_all {mode} n={n} party={party}",
                                same(got, want)))
+
+    hash_key = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
+    hk = blk.words(list(hash_key), dev)
+    for n in (16, 128):
+        s0s, betas = words((B, 2, 4)), words((B, 4))
+        alphas = domain(words((B, 4)), n)
+        xs = alphas.clone()
+        xs[1::2, 0] ^= 1
+        xs = kernel_inputs(xs, n)
+        wire, _ = ht_cuda.gen_batch(NONCE, groups.Uint(32), n, hash_key, s0s,
+                                    kernel_inputs(alphas, n), betas)
+        cases = {
+            "wire": (s0s[:, 1].contiguous(), wire),
+            "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous()),
+        }
+        for label, (s0, cws) in cases.items():
+            for party in (0, 1):
+                got = ht_cuda.eval_packed(s0, cws, xs, n, party, NONCE,
+                                          hash_key)
+                want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party,
+                                                 NONCE, hash_key)
+                checks.append((f"ht_eval n={n} {label} party={party}",
+                               same(got, want)))
+    for n in (1, 16, 128):
+        s0s = words((B, 2, 4))
+        lanes = domain(words((B, 4)), n)
+        for width in ((1, 4) if n <= 32 else (4,)):
+            alphas = lanes if width == 4 else lanes[:, 0].contiguous()
+            got = ht_cuda.gen_packed(s0s, alphas, n, NONCE, hash_key)
+            want = ht_cuda.gen_packed_plain(s0s, alphas, n, NONCE, hash_key)
+            checks.append((f"ht_gen n={n} alpha lanes={width}",
+                           same(got, want)))
+    prg1 = ChaCha(1, NONCE)
+    g = groups.Uint(128, 1 << 127)
+    for n in CHECK_HT_EVAL_ALL_BITS:
+        s0s, beta = words((1, 2, 4)), words((1, 4))
+        cws, ocw = plain_ht.gen(prg1, g, n, hk, s0s, blk.pack_inputs(
+            [int(rng.integers(0, 2**n))], n, dev), beta)
+        for party in (0, 1):
+            got = eval_all_cuda.ht_eval_all(prg1, g, n, party, hash_key,
+                                            s0s[0, party], cws[0], ocw[0])
+            want = plain_ht.eval_all(prg1, g, n, party, hk, s0s[0, party],
+                                     cws[0], ocw[0])
+            checks.append((f"ht_eval_all n={n} party={party}",
+                           same(got, want)))
     torch.cuda.synchronize()
     bad = [name for name, ok in checks if not ok]
     log("kernels", checked=len(checks), mismatches=bad)
@@ -290,27 +343,35 @@ def main() -> int:
         nonce = (case["nonce_lo"], case["nonce_hi"])
         if scheme == "dpf":
             d = Dpf(n, gmap[case["group"]], ChaCha(2, nonce))
-        else:
+        elif scheme == "dcf":
             d = Dcf(n, gmap[case["group"]], ChaCha(4, nonce), case["pred"])
+        else:
+            d = HalfTreeDpf(n, gmap[case["group"]], ChaCha(1, nonce),
+                            hexw(case["hash_key"]))
         tag = f"{scheme} {case['group']}-{n}-{case.get('pred', '')}"
         s0s = np.stack([hexw(h) for h in case["s0s"]])
-        cws = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
-        if raw(cws) != np.stack([hexw(r) for r in case["cws"]]).tobytes():
+        key = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
+        # A Half-Tree key is (cws, ocw); Eval and EvalAll take both.
+        key = key if scheme == "half_tree" else (key,)
+        if raw(key[0]) != np.stack([hexw(r) for r in case["cws"]]).tobytes():
             failures.append(f"{tag} gen")
+        if scheme == "half_tree" and raw(key[1]) != bytes.fromhex(
+                case["ocw"]):
+            failures.append(f"{tag} gen ocw")
         xs = [int(x, 0) for x in case["xs"]]
         for party in (0, 1):
-            ys = d.eval(party, s0s[party], cws, xs)
+            ys = d.eval(party, s0s[party], *key, xs)
             if raw(ys) != b"".join(bytes.fromhex(h)
                                    for h in case[f"ys{party}"]):
                 failures.append(f"{tag} eval party{party}")
             if "eval_all_digest0" in case:
-                full = raw(d.eval_all(party, s0s[party], cws))
+                full = raw(d.eval_all(party, s0s[party], *key))
                 if (hashlib.sha256(full).hexdigest()
                         != case[f"eval_all_digest{party}"]):
                     failures.append(f"{tag} eval_all party{party}")
 
     failures, counts = [], {}
-    for scheme in ("dpf", "dcf"):
+    for scheme in ("dpf", "dcf", "half_tree"):
         golden = [c for c in json.loads((GOLDEN / f"{scheme}.json")
                                         .read_text())["cases"]
                   if c["prg"] == "chacha"]
@@ -318,7 +379,7 @@ def main() -> int:
         for case in golden:
             golden_case(scheme, case, failures)
     log("golden", cases=counts, failures=failures)
-    if failures or counts != {"dpf": 6, "dcf": 6}:
+    if failures or counts != {"dpf": 6, "dcf": 6, "half_tree": 4}:
         return 1
 
     # 5. main paths at full size ------------------------------------------
@@ -441,6 +502,60 @@ def main() -> int:
         return 1
     launches.update(dlaunches)
 
+    # 5c. Half-Tree: x at alpha on even keys, elsewhere on odd ones.
+    hkeys = 1 << HT_MAIN_LOG2_KEYS
+    hg = groups.Uint(32)
+    hd = HalfTreeDpf(MAIN_BITS, hg, ChaCha(1, NONCE), hash_key)
+    hs0s, hbetas = words((hkeys, 2, 4)), words((hkeys, 4))
+    halphas = words((hkeys,), MAIN_BITS)
+    hxs = halphas.clone()
+    hxs[1::2] ^= 1 + words((hkeys // 2,), MAIN_BITS - 1)  # != alpha
+    hn_ea = max(HT_EVAL_ALL_BITS)
+    hea_seeds, hea_beta = words((2, 4)), words((4,))
+    hea_alpha = int(rng.integers(0, 2**hn_ea))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hcws, hocw = hd.gen_batch(hs0s, halphas, hbetas)
+    hy0 = hd.eval(0, hs0s[:, 0].contiguous(), hcws, hocw, hxs)
+    hy1 = hd.eval(1, hs0s[:, 1].contiguous(), hcws, hocw, hxs)
+    hrec = hg.add(hg.from_block(hy0), hg.from_block(hy1))
+    hea_rec, hea_ht, hea_key = {}, {}, {}
+    for n in HT_EVAL_ALL_BITS:
+        a = hea_alpha % (1 << n)
+        hea_ht[n] = HalfTreeDpf(n, hg, ChaCha(1, NONCE), hash_key)
+        hea_key[n] = hea_ht[n].gen(hea_seeds, a, hea_beta)
+        e0 = hea_ht[n].eval_all(0, hea_seeds[0], *hea_key[n])
+        e1 = hea_ht[n].eval_all(1, hea_seeds[1], *hea_key[n])
+        hea_rec[n] = (hg.add(hg.from_block(e0), hg.from_block(e1)), a)
+    torch.cuda.synchronize()
+    hmain_s = time.perf_counter() - t0
+    hlaunches = {k: _build.launches[k] for k in HT_SOURCES}
+
+    want = torch.zeros_like(hrec)
+    want[0::2, 0] = hbetas[0::2, 0]
+    hrec_ok = torch.equal(hrec, want)
+    hsample_ok = same((hcws[:SAMPLE], hocw[:SAMPLE]), plain_ht.gen(
+        hd.prg, hg, MAIN_BITS, hk, hs0s[:SAMPLE],
+        blk.pack_inputs(halphas[:SAMPLE], MAIN_BITS), hbetas[:SAMPLE]))
+    hsample_ok &= same(hy1[:SAMPLE], plain_ht.eval_points(
+        hd.prg, hg, MAIN_BITS, 1, hk, hs0s[:SAMPLE, 1], hcws[:SAMPLE],
+        hocw[:SAMPLE], blk.pack_inputs(hxs[:SAMPLE], MAIN_BITS)))
+    hea_ok = True
+    for n, (r, a) in hea_rec.items():
+        expect = torch.zeros_like(r)
+        expect[a, 0] = hea_beta[0]
+        hea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
+    log("main_path", scheme="half_tree", keys=hkeys, in_bits=MAIN_BITS,
+        group=hg.name, seconds=round(hmain_s, 3), reconstruct_ok=hrec_ok,
+        sample_vs_plain_ok=hsample_ok, eval_all_bits=list(HT_EVAL_ALL_BITS),
+        eval_all_ok=hea_ok, launches=hlaunches)
+    if not (hrec_ok and hsample_ok and hea_ok
+            and all(v > 0 for v in hlaunches.values())):
+        return 1
+    launches.update(hlaunches)
+
     # 6. timing at the main-path shapes -----------------------------------
     s0 = s0s[:, 0].contiguous()
     ev = (s0, cws, xs, MAIN_BITS, 0, NONCE)
@@ -465,6 +580,19 @@ def main() -> int:
     def dcf_plain_expand():
         return eval_all_cuda.dcf_expand_leaves(
             *dexpand_args, expand=eval_all_cuda.dcf_expand_packed_plain)
+
+    hs0 = hs0s[:, 0].contiguous()
+    hev = (hs0, hcws, hxs, MAIN_BITS, 0, NONCE, hash_key)
+    hgv = (hs0s, halphas, MAIN_BITS, NONCE, hash_key)
+    hexpand_args = (hd.prg, hn_ea, 0, hash_key, hea_seeds[0],
+                    hea_key[hn_ea][0])
+
+    def ht_kernel_expand():
+        return eval_all_cuda.ht_expand_leaves(*hexpand_args)
+
+    def ht_plain_expand():
+        return eval_all_cuda.ht_expand_leaves(
+            *hexpand_args, expand=eval_all_cuda.ht_expand_packed_plain)
 
     kernels = [
         ("dpf_eval", "fss_tpu_torch/csrc/dpf_eval.cu",
@@ -505,6 +633,29 @@ def main() -> int:
          dcf_kernel_expand, dcf_plain_expand,
          ((1 << dn_ea) - 1) * CHACHA_OPS,
          16 + 16 + dn_ea * 32 + (1 << dn_ea) * (16 + 4 + 16)),
+        # seed 16 B, n - 1 CWs of 16 B, the last row's 20 B and x 4 B in;
+        # high 16 B and low 4 B out. One block a level.
+        ("ht_eval", "fss_tpu_torch/csrc/ht_eval.cu",
+         "fss_tpu/ops/ht_pallas.py:133",
+         lambda: ht_cuda.eval_packed(*hev),
+         lambda: ht_cuda.eval_packed_plain(*hev),
+         hkeys * MAIN_BITS * CHACHA_OPS,
+         hkeys * (16 + (MAIN_BITS - 1) * 16 + 20 + 4 + 16 + 4)),
+        # seeds 32 B and alpha 4 B in; n rows of 32 B and two leaves out.
+        # Two blocks a level and four at the last.
+        ("ht_gen", "fss_tpu_torch/csrc/ht_gen.cu",
+         "fss_tpu/ops/ht_pallas.py:300",
+         lambda: ht_cuda.gen_packed(*hgv),
+         lambda: ht_cuda.gen_packed_plain(*hgv),
+         hkeys * (2 * (MAIN_BITS - 1) + 4) * CHACHA_OPS,
+         hkeys * (32 + 4 + MAIN_BITS * 32 + 2 * 16)),
+        # root and key rows in; each leaf's high and low out.
+        # 2^(n-1) - 1 doubling blocks and 2^n conversion blocks.
+        ("ht_eval_all", "fss_tpu_torch/csrc/ht_eval_all.cu",
+         "fss_tpu/ops/eval_all_pallas.py:400",
+         ht_kernel_expand, ht_plain_expand,
+         ((1 << (hn_ea - 1)) - 1 + (1 << hn_ea)) * CHACHA_OPS,
+         16 + hn_ea * 20 + (1 << hn_ea) * (16 + 4)),
     ]
     rows = []
     for name, src, replaces, kern, plain, ops, nbytes in kernels:
@@ -549,6 +700,22 @@ def main() -> int:
         dcf_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
                                   for n, ms in dea_ms.items()},
         dcf_eval_all_ms=dea_ms,
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+    hgen_ms = cuda_ms(lambda: hd.gen_batch(hs0s, halphas, hbetas), 10)
+    heval_ms = cuda_ms(lambda: hd.eval(0, hs0, hcws, hocw, hxs), 10)
+    hea_ms = {n: cuda_ms(lambda n=n: hea_ht[n].eval_all(0, hea_seeds[0],
+                                                        *hea_key[n]), 5)
+              for n in HT_EVAL_ALL_BITS}
+    log("timing", scheme="half_tree", card=kind,
+        power_limit=smi.split(",")[-1].strip(),
+        ht_gen_keys_per_s=hkeys / (hgen_ms / 1e3), ht_gen_ms=hgen_ms,
+        ht_gen_bound_ms=rows[7]["bound_ms"],
+        ht_eval_per_s=hkeys / (heval_ms / 1e3), ht_eval_ms=heval_ms,
+        ht_eval_bound_ms=rows[6]["bound_ms"],
+        ht_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
+                                 for n, ms in hea_ms.items()},
+        ht_eval_all_ms=hea_ms,
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
 

@@ -28,7 +28,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "fss_tpu_torch"
 SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
-           "dcf_eval_all")
+           "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all")
 HEADERS = ("chacha.cuh", "group.cuh", "dcf_acc.cuh")  # digested by every .so
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,13 +1,14 @@
-"""High-level DPF and DCF API on PyTorch tensors.
+"""High-level DPF, DCF and Half-Tree DPF API on PyTorch tensors.
 
-Counterpart of ``fss_tpu.api`` for the DPF and DCF schemes (``Dpf``,
-``PackedDpfKeys``, ``Dcf``, ``DEFAULT_NONCE``). Entry points run on the
-card unless the caller asks for the CPU: ``device="cuda"`` is the
-default, and inputs given as ints, lists, numpy arrays or tensors are
-moved to the scheme's ``device``. On a CUDA device every Gen, Eval and
-EvalAll goes through the CUDA kernels of ``fss_tpu_torch.ops``, for every
-group and every ``in_bits`` in 1..128; on the CPU through their plain
-PyTorch versions. There is no fallback between the two.
+Counterpart of ``fss_tpu.api`` for the DPF, DCF and Half-Tree DPF schemes
+(``Dpf``, ``PackedDpfKeys``, ``Dcf``, ``HalfTreeDpf``, ``DEFAULT_NONCE``).
+Entry points run on the card unless the caller asks for the CPU:
+``device="cuda"`` is the default, and inputs given as ints, lists, numpy
+arrays or tensors are moved to the scheme's ``device``. On a CUDA device
+every Gen, Eval and EvalAll goes through the CUDA kernels of
+``fss_tpu_torch.ops``, for every group and every ``in_bits`` in 1..128; on
+the CPU through their plain PyTorch versions. There is no fallback
+between the two.
 
 Keys and shares are int32 tensors bit-identical to the reference's int32
 tensors and to the JAX package's uint32 arrays.
@@ -22,7 +23,7 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda
+from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 
 DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
@@ -90,13 +91,16 @@ class _TreeScheme:
         lanes = blk.pack_inputs(xs, self.in_bits, self.device)
         return lanes.reshape(-1, 4).contiguous()
 
+    def _one(self, s0s, alpha, beta):
+        """One key's Gen inputs as a batch of one for ``gen_batch``."""
+        alpha = blk.pack_inputs(alpha, self.in_bits,
+                                self.device).reshape(1, 4)
+        return self._blocks(s0s)[None], alpha, self._blocks(beta)[None]
+
     def gen(self, s0s, alpha, beta) -> torch.Tensor:
         """One key: s0s [2, 4], alpha an int (or lanes), beta [4].
         Returns cws [in_bits+1, 8] through ``gen_batch``."""
-        alpha = blk.pack_inputs(alpha, self.in_bits,
-                                self.device).reshape(1, 4)
-        return self.gen_batch(self._blocks(s0s)[None], alpha,
-                              self._blocks(beta)[None])[0]
+        return self.gen_batch(*self._one(s0s, alpha, beta))[0]
 
 
 class Dpf(_TreeScheme):
@@ -193,3 +197,53 @@ class Dcf(_TreeScheme):
         return eval_all_cuda.dcf_eval_all(self.prg, self.group, self.in_bits,
                                           int(party), self._blocks(s0),
                                           self._blocks(cws))
+
+
+class HalfTreeDpf(_TreeScheme):
+    """2-party Half-Tree DPF with the ChaCha PRG (mul=1) as its CCR hash
+    H(hash_key ^ node).
+
+    Keys: (cws (in_bits, 8) int32, ocw (4,) int32), the reference's
+    layout. ``hash_key`` is the public CCR-hash tweak, 4 words shared by
+    both parties (zeros unless given).
+    """
+
+    MUL = 1
+
+    def __init__(self, in_bits: int, group=None, prg=None, hash_key=None,
+                 device="cuda"):
+        super().__init__(in_bits, group, prg, device)
+        self.hash_key = ht_cuda.hash_words(
+            (0, 0, 0, 0) if hash_key is None else hash_key)
+
+    def gen(self, s0s, alpha, beta):
+        """One key: s0s [2, 4], alpha an int (or lanes), beta [4].
+        Returns (cws [in_bits, 8], ocw [4]) through ``gen_batch``."""
+        cws, ocw = self.gen_batch(*self._one(s0s, alpha, beta))
+        return cws[0], ocw[0]
+
+    def gen_batch(self, s0s, alphas, betas):
+        """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
+        (or [B, 4] lanes, or a list of ints), betas [B, 4]. Returns
+        (cws [B, in_bits, 8], ocw [B, 4])."""
+        return ht_cuda.gen_batch(self.prg.nonce, self.group, self.in_bits,
+                                 self.hash_key, self._blocks(s0s),
+                                 self._inputs(alphas), self._blocks(betas),
+                                 rounds=self.prg.rounds)
+
+    def eval(self, party: int, s0, cws, ocw, xs) -> torch.Tensor:
+        """Point evaluation. s0 [B, 4] or [4]; cws [B, in_bits, 8] or one
+        key [in_bits, 8]; ocw [B, 4] or [4]; xs ints, an int array, or
+        [B, 4] lanes. Returns [B, 4] shares ([4] for a single int x)."""
+        y = ht_cuda.eval_points(self.prg.nonce, self.group, self.in_bits,
+                                int(party), self.hash_key, self._blocks(s0),
+                                self._blocks(cws), self._blocks(ocw),
+                                self._inputs(xs), rounds=self.prg.rounds)
+        return y[0] if isinstance(xs, (int, np.integer)) else y
+
+    def eval_all(self, party: int, s0, cws, ocw) -> torch.Tensor:
+        """Full-domain evaluation of one key: [2^in_bits, 4] shares."""
+        return eval_all_cuda.ht_eval_all(self.prg, self.group, self.in_bits,
+                                         int(party), self.hash_key,
+                                         self._blocks(s0), self._blocks(cws),
+                                         self._blocks(ocw))

@@ -1,6 +1,7 @@
 // One block of the reference's nonstandard ChaCha PRG at mul=2, shared by
-// the DPF kernels (dpf_eval.cu, dpf_gen.cu, dpf_eval_all.cu), and at mul=4
-// (chacha4 below), shared by the DCF kernels.
+// the DPF kernels (dpf_eval.cu, dpf_gen.cu, dpf_eval_all.cu), at mul=4
+// (chacha4 below), shared by the DCF kernels, and at mul=1 (chacha1), the
+// CCR hash of the Half-Tree kernels.
 //
 // Device counterpart of fss_tpu_torch/prg/chacha.py (chacha_prg_words with
 // mul=2): state = "expand 16-byte k" | seed | seed | 0, 0, nonce; after
@@ -55,6 +56,18 @@ __device__ __forceinline__ void chacha2(const uint32_t seed[4], uint32_t n0,
   left[2] = x2 ^ kC2; left[3] = x3 ^ kC3;
   right[0] = x4 ^ k0; right[1] = x5 ^ k1;
   right[2] = x6 ^ k2; right[3] = x7 ^ k3;
+}
+
+// The mul=1 block of the Half-Tree kernels (ht_eval.cu, ht_gen.cu,
+// ht_eval_all.cu): the same "expand 16-byte k" state as mul=2, and its only
+// output is chacha2's right one, row1 ^ seed. The same 960 ALU ops: the
+// left output's four XORs are dead and the compiler drops them. `out` may
+// alias `seed`.
+__device__ __forceinline__ void chacha1(const uint32_t seed[4], uint32_t n0,
+                                        uint32_t n1, int rounds,
+                                        uint32_t out[4]) {
+  uint32_t unused[4];
+  chacha2(seed, n0, n1, rounds, unused, out);
 }
 
 // "expand 32-byte k": row 0 at mul=4.

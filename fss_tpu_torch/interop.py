@@ -3,8 +3,10 @@
 The JAX package's state is numpy uint32 arrays (``np.asarray`` of its
 jax arrays); the port's is int32 tensors with the same bits. This module
 converts seeds [..., 2, 4], wire keys [B, in_bits+1, 8], the JAX
-package's packed keys (cw planes [in_bits, 5, T, 128] + ocw [B, 4]) and a
-DPF configuration described by plain values, in both directions. It
+package's packed keys (cw planes [in_bits, 5, T, 128] + ocw [B, 4]) and
+DPF, DCF and Half-Tree configurations described by plain values, in both
+directions. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
+arrays through :func:`to_torch` and :func:`to_numpy`. It
 imports nothing of the JAX package: a caller hands it arrays and values.
 """
 
@@ -15,7 +17,8 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.api import Dcf, Dpf, PackedDpfKeys
+from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, PackedDpfKeys
+from fss_tpu_torch.ops.ht_cuda import hash_words
 from fss_tpu_torch.prg.chacha import ChaCha
 
 LANES = 128  # key lanes per row of the JAX package's packed planes
@@ -86,3 +89,17 @@ def dcf_from_config(cfg: dict, device="cuda") -> Dcf:
     """The port's Dcf for a configuration made by :func:`dcf_config`."""
     return Dcf(cfg["in_bits"], pred=cfg.get("pred", "lt"), device=device,
                **_scheme_args(cfg, 4))
+
+
+def half_tree_config(in_bits: int, group, prg, hash_key) -> dict:
+    """A Half-Tree DPF configuration as plain values: :func:`dpf_config`'s
+    fields and the CCR hash key (4 words, an array of either package)."""
+    return {**dpf_config(in_bits, group, prg),
+            "hash_key": list(hash_words(hash_key))}
+
+
+def half_tree_from_config(cfg: dict, device="cuda") -> HalfTreeDpf:
+    """The port's HalfTreeDpf for a configuration made by
+    :func:`half_tree_config`."""
+    return HalfTreeDpf(cfg["in_bits"], hash_key=cfg["hash_key"],
+                       device=device, **_scheme_args(cfg, 1))

@@ -1,11 +1,13 @@
-"""DPF and DCF full-domain evaluation (EvalAll) on the card: wrappers of
-the CUDA kernels ``csrc/dpf_eval_all.cu`` and ``csrc/dcf_eval_all.cu``.
+"""DPF, DCF and Half-Tree full-domain evaluation (EvalAll) on the card:
+wrappers of the CUDA kernels ``csrc/dpf_eval_all.cu``,
+``csrc/dcf_eval_all.cu`` and ``csrc/ht_eval_all.cu``.
 
 Counterpart of ``fss_tpu.ops.eval_all_pallas``; the kernels replace
-``eval_all_pallas._expand_packed`` and ``eval_all_pallas.dcf_eval_all``.
-Nodes are packed (s, t) [N, 4] int32 blocks with t in the clamped bit; a
-DCF node also carries its raw value accumulator [N, 4 or 5]
-(``ops/dcf_cuda.py``).
+``eval_all_pallas._expand_packed``, ``eval_all_pallas.dcf_eval_all`` and
+``eval_all_pallas.ht_eval_all``. Nodes are packed (s, t) [N, 4] int32
+blocks with t in the clamped bit; a DCF node also carries its raw value
+accumulator [N, 4 or 5] (``ops/dcf_cuda.py``); a Half-Tree node is the
+whole 128-bit node, which holds t in the same bit.
 
 Split: every level runs through the kernel, the root's first, in launches
 of up to ``LEVELS_PER_LAUNCH`` levels (the remainder first, so the last
@@ -15,9 +17,14 @@ hundreds of tiny launches per level, and one kernel launch per level
 stride costs a few microseconds at any width. The last launch writes the
 seeds with the clamped bit cleared and the t bits as their own plane.
 
+The Half-Tree counts its conversion level as one of its in_bits levels:
+the n-1 doubling levels and the conversion split into launches the same
+way, and the last launch ends with the conversion, which writes 2 leaves
+a node, (high, low), in x order.
+
 CUDA tensors go to the kernel (a failing build or launch raises), CPU
-tensors to the plain PyTorch versions :func:`expand_packed_plain` and
-:func:`dcf_expand_packed_plain`.
+tensors to the plain PyTorch versions :func:`expand_packed_plain`,
+:func:`dcf_expand_packed_plain` and :func:`ht_expand_packed_plain`.
 """
 
 from __future__ import annotations
@@ -27,11 +34,12 @@ import torch
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch.block import i32, u64
-from fss_tpu_torch.ops import dcf_cuda
+from fss_tpu_torch.ops import dcf_cuda, ht_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import _tree
 from fss_tpu_torch.schemes import dcf as _dcf
 from fss_tpu_torch.schemes import dpf as _dpf
+from fss_tpu_torch.schemes import half_tree_dpf as _ht
 
 LEVELS_PER_LAUNCH = 3
 
@@ -42,6 +50,9 @@ _DCF_EXPAND_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P,
                     _build.P, _build.P, _build.I64, _build.INT, _build.INT,
                     *(_build.U32,) * 4, _build.U32, _build.U32, _build.INT,
                     _build.P)
+_HT_EXPAND_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
+                   _build.I64, _build.INT, _build.INT, *(_build.U32,) * 4,
+                   _build.U32, _build.U32, _build.INT, _build.P)
 
 
 def _check(roots, cw_rows, row_words=5):
@@ -224,3 +235,70 @@ def dcf_eval_all(prg4, group, in_bits: int, party: int, s0: torch.Tensor,
                                   dcf_cuda.group_mode(group),
                                   dcf_cuda.value_mask(group))
     return dcf_cuda.finalize(group, party, acc, s, t, cws[in_bits, 4:8])
+
+
+# ---------------------------------------------------------------------------
+# Half-Tree
+# ---------------------------------------------------------------------------
+
+def ht_expand_packed(roots: torch.Tensor, cw_rows: torch.Tensor, nonce,
+                     hash_key, rounds: int = 20, final: bool = False):
+    """Expand Half-Tree nodes [N, 4] by L = cw_rows.shape[0] levels (1..3).
+
+    cw_rows: [L, 8] (or [L, >=5]) int32 key rows of those levels. Without
+    ``final`` each row is a doubling level, and the nodes [N << L, 4] come
+    back in x order. With ``final`` the last row is the conversion level
+    (SetLsb(HCW, LCW_0), LCW_1), and the leaves come back in x order as
+    (high [N << L, 4] with the clamped bit clear, low [N << L]).
+    """
+    dev = _check(roots, cw_rows)
+    if dev.type == "cpu":
+        return ht_expand_packed_plain(roots, cw_rows, nonce, hash_key,
+                                      rounds, final)
+    L = cw_rows.shape[0]
+    n = roots.shape[0] << L
+    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    low = torch.empty((n,), dtype=torch.int32, device=dev) if final else None
+    prg = ChaCha(1, nonce, rounds)  # validates rounds, masks the nonce
+    fn = _build.function("ht_eval_all", "fss_ht_expand", _HT_EXPAND_ARGS)
+    _build.launch(
+        "ht_eval_all", fn, roots.data_ptr(), cw_rows.data_ptr(),
+        cw_rows.stride(0), out.data_ptr(), low.data_ptr() if final else None,
+        roots.shape[0], L, int(final), *ht_cuda.hash_words(hash_key),
+        *prg.nonce, prg.rounds, device=dev)
+    return (out, low) if final else out
+
+
+def ht_expand_packed_plain(roots, cw_rows, nonce, hash_key, rounds: int = 20,
+                           final: bool = False):
+    """Plain PyTorch version of :func:`ht_expand_packed`, on any device."""
+    _check(roots, cw_rows)
+    prg1 = ChaCha(1, nonce, rounds)
+    hk = ht_cuda.hash_block(hash_key, roots.device)
+    nodes = roots
+    for row in cw_rows[:-1] if final else cw_rows:
+        nodes = _ht.expand_level(prg1, hk, nodes, row[0:4])
+    return _ht.convert_both(prg1, hk, nodes, cw_rows[-1]) if final else nodes
+
+
+def ht_expand_leaves(prg1, in_bits: int, party: int, hash_key,
+                     s0: torch.Tensor, cws: torch.Tensor,
+                     expand=ht_expand_packed):
+    """Expand one Half-Tree key to its leaves: (high [2^n, 4], low [2^n])
+    in x order. ``expand`` is the per-launch step (the plain version can
+    be passed to time the same sequence without the kernel)."""
+    nodes = blk.set_lsb(s0, party)[None, :].contiguous()
+    for lo, hi in _launch_levels(in_bits, party):
+        nodes = expand(nodes, cws[lo:hi], prg1.nonce, hash_key, prg1.rounds,
+                       final=hi == in_bits)
+    return nodes
+
+
+def ht_eval_all(prg1, group, in_bits: int, party: int, hash_key,
+                s0: torch.Tensor, cws: torch.Tensor,
+                ocw: torch.Tensor) -> torch.Tensor:
+    """Full-domain Half-Tree evaluation of one key: [2^in_bits, 4] shares
+    in x order. ``prg1`` is the ChaCha mul=1 PRG whose nonce and rounds
+    drive the kernel."""
+    high, low = ht_expand_leaves(prg1, in_bits, party, hash_key, s0, cws)
+    return _dpf.finalize_leaves(group, party, high, low, ocw)

@@ -1,0 +1,185 @@
+"""Batched Half-Tree DPF point evaluation and Gen on the card: wrappers of
+the CUDA kernels ``csrc/ht_eval.cu`` and ``csrc/ht_gen.cu``.
+
+Counterpart of ``fss_tpu.ops.ht_pallas``. The kernels replace
+``ht_pallas.eval_packed`` and ``ht_pallas.gen_packed``; each source file
+says what bounds it on the H100 and what its design does about that.
+
+Dispatch is by the tensors' device only: CUDA tensors go to the kernel
+(a failing build or launch raises), CPU tensors to the plain PyTorch
+version beside each wrapper (``*_plain``), which computes the same
+function and is what the CPU tests and the card's kernel checks compare
+with. Group conversion (the DPF's ``finalize_leaves`` and ``output_cw``)
+is elementwise glue outside the kernels, as in the JAX package.
+
+The CCR hash key and the PRG nonce reach the kernels as uint32 arguments
+(the TPU kernels bake them in as constants), so a new key needs no
+rebuild. Keys are wire rows [B, in_bits, 8], which the Eval kernel reads
+in place through strides, or one broadcast key [in_bits, 8]; the output
+CW is [B, 4] or one [4]. Both kernels take every ``in_bits`` in 1..128,
+with x and alpha as 1 lane (in_bits <= 32) or 4.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fss_tpu_torch import _build
+from fss_tpu_torch import block as blk
+from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
+from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes import dpf as _dpf
+from fss_tpu_torch.schemes import half_tree_dpf as _ht
+
+_EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.P,
+              _build.I64, _build.P, _build.P, _build.I64, _build.INT,
+              _build.INT, *(_build.U32,) * 4, _build.U32, _build.U32,
+              _build.INT, _build.P)
+_GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P, _build.P,
+             _build.I64, _build.INT, *(_build.U32,) * 4, _build.U32,
+             _build.U32, _build.INT, _build.P)
+
+
+def hash_words(hash_key) -> tuple:
+    """A CCR hash key given as 4 words (a sequence, an array or a tensor)
+    -> 4 ints in [0, 2^32)."""
+    if isinstance(hash_key, torch.Tensor):
+        hash_key = hash_key.detach().cpu().tolist()
+    words = tuple(int(w) & blk.MASK32 for w in np.asarray(hash_key).ravel())
+    if len(words) != 4:
+        raise ValueError(f"hash_key must be 4 words, got {len(words)}")
+    return words
+
+
+def hash_block(hash_key, device) -> torch.Tensor:
+    """The hash key as a [4] int32 block on ``device``."""
+    return blk.words(list(hash_words(hash_key)), device)
+
+
+def _check_in_bits(in_bits: int) -> None:
+    if not 1 <= in_bits <= 128:
+        raise ValueError(f"in_bits must be in 1..128, got {in_bits}")
+
+
+def _check_eval(s0, cws, xs, in_bits, party):
+    if party not in (0, 1):
+        raise ValueError(f"party must be 0 or 1, got {party}")
+    _check_in_bits(in_bits)
+    B = xs.shape[0]
+    dev = _device(s0, cws, xs)
+    _build.check(s0, "s0", dev, [(B, 4), (4,)])
+    _build.check(cws, "cws", dev, [(B, in_bits, 8), (in_bits, 8)])
+    _build.check(xs, "xs", dev,
+                 [(B, 4)] if in_bits > 32 else [(B,), (B, 4)])
+    return dev
+
+
+def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
+                in_bits: int, party: int, nonce, hash_key,
+                rounds: int = 20):
+    """The Half-Tree walk and last-level conversion for a batch of keys.
+
+    s0: [B, 4] seeds or one [4] seed; cws: wire rows [B, in_bits, 8] or
+    one key [in_bits, 8]; xs: [B], or [B, 4] lanes (required for
+    in_bits > 32). All int32. Returns (high [B, 4] with the clamped bit
+    clear, low [B]): the corrected leaf, before the group finalize.
+    """
+    dev = _check_eval(s0, cws, xs, in_bits, party)
+    if dev.type == "cpu":
+        return eval_packed_plain(s0, cws, xs, in_bits, party, nonce,
+                                 hash_key, rounds)
+    B = xs.shape[0]
+    high = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    low = torch.empty((B,), dtype=torch.int32, device=dev)
+    prg = ChaCha(1, nonce, rounds)  # validates rounds, masks the nonce
+    fn = _build.function("ht_eval", "fss_ht_eval", _EVAL_ARGS)
+    _build.launch(
+        "ht_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
+        cws.data_ptr(), in_bits * 8 if cws.dim() == 3 else 0, xs.data_ptr(),
+        4 if xs.dim() == 2 else 1, high.data_ptr(), low.data_ptr(), B,
+        in_bits, int(party), *hash_words(hash_key), *prg.nonce, prg.rounds,
+        device=dev)
+    return high, low
+
+
+def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce,
+                      hash_key, rounds: int = 20):
+    """Plain PyTorch version of :func:`eval_packed` (same inputs, same
+    outputs), on any device."""
+    _check_eval(s0, cws, xs, in_bits, party)
+    B = xs.shape[0]
+    wide = cws.expand(B, in_bits, 8)
+    x_bits = blk.input_bits_msb_first(_x_lanes(xs), in_bits)
+    prg1 = ChaCha(1, nonce, rounds)
+    hk = hash_block(hash_key, xs.device)
+    node = _ht.walk(prg1, in_bits, party, hk, s0.expand(B, 4),
+                    lambda i: wide[:, i, 0:4], x_bits)
+    return _ht.convert_at(prg1, hk, node, x_bits[:, in_bits - 1],
+                          wide[:, in_bits - 1])
+
+
+def eval_points(prg_nonce, group, in_bits: int, party: int, hash_key, s0,
+                cws, ocw, xs, rounds: int = 20) -> torch.Tensor:
+    """Point evaluation: kernel walk + the DPF's group finalize."""
+    high, low = eval_packed(s0, cws, xs, in_bits, party, prg_nonce,
+                            hash_key, rounds)
+    return _dpf.finalize_leaves(group, party, high, low, ocw)
+
+
+# ---------------------------------------------------------------------------
+# Gen
+# ---------------------------------------------------------------------------
+
+def _check_gen(s0s, alphas, in_bits):
+    _check_in_bits(in_bits)
+    B = s0s.shape[0]
+    dev = _device(s0s, alphas)
+    _build.check(s0s, "s0s", dev, [(B, 2, 4)])
+    _build.check(alphas, "alphas", dev,
+                 [(B, 4)] if in_bits > 32 else [(B,), (B, 4)])
+    return dev
+
+
+def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int,
+               nonce, hash_key, rounds: int = 20):
+    """Every level of Half-Tree Gen for a batch of keys.
+
+    s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
+    in_bits > 32). Returns (cws [B, in_bits, 8] whole wire rows, leaf0
+    [B, 4], leaf1 [B, 4]): the parties' corrected leaves in the alpha
+    direction, from which :func:`gen_batch` makes the output CW.
+    """
+    dev = _check_gen(s0s, alphas, in_bits)
+    if dev.type == "cpu":
+        return gen_packed_plain(s0s, alphas, in_bits, nonce, hash_key,
+                                rounds)
+    B = s0s.shape[0]
+    cws = torch.empty((B, in_bits, 8), dtype=torch.int32, device=dev)
+    leaf0 = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    leaf1 = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    prg = ChaCha(1, nonce, rounds)
+    fn = _build.function("ht_gen", "fss_ht_gen", _GEN_ARGS)
+    _build.launch(
+        "ht_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
+        4 if alphas.dim() == 2 else 1, cws.data_ptr(), leaf0.data_ptr(),
+        leaf1.data_ptr(), B, in_bits, *hash_words(hash_key), *prg.nonce,
+        prg.rounds, device=dev)
+    return cws, leaf0, leaf1
+
+
+def gen_packed_plain(s0s, alphas, in_bits: int, nonce, hash_key,
+                     rounds: int = 20):
+    """Plain PyTorch version of :func:`gen_packed`, on any device."""
+    _check_gen(s0s, alphas, in_bits)
+    return _ht.gen_keys(ChaCha(1, nonce, rounds), in_bits,
+                        hash_block(hash_key, s0s.device), s0s,
+                        blk.input_bits_msb_first(_x_lanes(alphas), in_bits))
+
+
+def gen_batch(prg_nonce, group, in_bits: int, hash_key, s0s, alphas, betas,
+              rounds: int = 20):
+    """Batched Gen: (cws [B, in_bits, 8], ocw [B, 4])."""
+    cws, leaf0, leaf1 = gen_packed(s0s, alphas, in_bits, prg_nonce,
+                                   hash_key, rounds)
+    return cws, _ht.output_cw(group, leaf0, leaf1, betas)

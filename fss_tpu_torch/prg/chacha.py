@@ -38,7 +38,9 @@ def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((x << n) & MASK32) | (x >> (32 - n))
 
 
-def _quarter_round(a, b, c, d):
+def _quarter_rounds(a, b, c, d):
+    """Four quarter-rounds at once: a, b, c, d are state rows [4, ...] and
+    word i of them is one quarter-round's (a, b, c, d)."""
     a = (a + b) & MASK32
     d = _rotl(d ^ a, 16)
     c = (c + d) & MASK32
@@ -50,31 +52,41 @@ def _quarter_round(a, b, c, d):
     return a, b, c, d
 
 
-def chacha_prg_words(seed_words, nonce, mul: int, rounds: int = 20):
-    """4 int64 seed words in [0, 2^32) (any common batch shape) ->
-    ``mul`` tuples of 4 int64 output words."""
-    k0, k1, k2, k3 = seed_words
+def _roll(row: torch.Tensor, k: int) -> torch.Tensor:
+    """Word i of the result is word (i + k) % 4 of ``row`` [4, ...]."""
+    return torch.cat([row[k:], row[:k]]) if k else row
+
+
+def chacha_prg_rows(seed: torch.Tensor, nonce, mul: int, rounds: int = 20):
+    """[..., 4] int64 seed words in [0, 2^32) -> ``mul`` int64 blocks
+    [..., 4].
+
+    The state is kept as its 4 rows, word-major ([4, ...]); a column round
+    is one quarter-round over the rows, a diagonal round the same after
+    rotating rows 1-3 by 1-3 words (``_DIAGONALS``: word i of row 0 meets
+    word i+1 of row 1, i+2 of row 2 and i+3 of row 3), and rotating them
+    back after.
+    """
     const = CONST16 if mul <= 2 else CONST32
     n0 = int(nonce[0]) & MASK32
     n1 = int(nonce[1]) & MASK32
-    zero = torch.zeros_like(k0)
-    s = [zero + c for c in const] + [k0, k1, k2, k3, k0, k1, k2, k3,
-                                     zero, zero, zero + n0, zero + n1]
+    key = seed.movedim(-1, 0).contiguous()
+    zero = torch.zeros_like(key)
+    shape = (4,) + (1,) * (key.dim() - 1)
+    row0 = zero + torch.tensor(const, dtype=torch.int64,
+                               device=key.device).reshape(shape)
+    row3 = zero + torch.tensor((0, 0, n0, n1), dtype=torch.int64,
+                               device=key.device).reshape(shape)
+    a, b, c, d = row0, key, key, row3
     for _ in range(rounds // 2):
-        for group in (_COLUMNS, _DIAGONALS):
-            for ia, ib, ic, id_ in group:
-                s[ia], s[ib], s[ic], s[id_] = _quarter_round(
-                    s[ia], s[ib], s[ic], s[id_])
+        a, b, c, d = _quarter_rounds(a, b, c, d)
+        a, b, c, d = _quarter_rounds(a, _roll(b, 1), _roll(c, 2),
+                                     _roll(d, 3))
+        b, c, d = _roll(b, 3), _roll(c, 2), _roll(d, 1)
 
-    out1 = (s[4] ^ k0, s[5] ^ k1, s[6] ^ k2, s[7] ^ k3)
-    if mul == 1:
-        return (out1,)
-    out0 = tuple(s[i] ^ const[i] for i in range(4))
-    if mul == 2:
-        return (out0, out1)
-    out2 = (s[8] ^ k0, s[9] ^ k1, s[10] ^ k2, s[11] ^ k3)
-    out3 = (s[12], s[13], s[14] ^ n0, s[15] ^ n1)
-    return (out0, out1, out2, out3)
+    outs = (a ^ row0, b ^ key, c ^ key, d ^ row3)
+    picked = {1: outs[1:2], 2: outs[0:2], 4: outs}[mul]
+    return tuple(o.movedim(0, -1).contiguous() for o in picked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +109,9 @@ class ChaCha:
             self, "nonce", tuple(int(n) & MASK32 for n in self.nonce))
 
     def __call__(self, seed: torch.Tensor):
-        words = blk.to_words(blk.u64(seed))
-        outs = chacha_prg_words(words, self.nonce, self.mul, self.rounds)
-        return tuple(blk.i32(torch.stack(o, dim=-1)) for o in outs)
+        outs = chacha_prg_rows(blk.u64(seed), self.nonce, self.mul,
+                               self.rounds)
+        return tuple(blk.i32(o) for o in outs)
 
 
 def chacha_prg_reference(seed: np.ndarray, nonce, mul: int,

@@ -19,6 +19,7 @@ from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.api import DEFAULT_NONCE, Dcf, Dpf, PackedDpfKeys
 from fss_tpu_torch.prg.chacha import ChaCha
+from torch_threads import one_torch_thread  # noqa: F401
 
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 

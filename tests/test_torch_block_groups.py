@@ -11,6 +11,7 @@ from fss_tpu import block as jblk
 from fss_tpu import groups as jgroups
 from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
+from torch_threads import one_torch_thread  # noqa: F401
 
 EDGE = np.array([[0, 0, 0, 0],
                  [0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF],

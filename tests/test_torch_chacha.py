@@ -19,6 +19,7 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.prg import chacha as tchacha
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 VEC = REPO / "tests" / "golden" / "vectors"
@@ -62,10 +63,13 @@ def test_chacha_rejects_bad_parameters():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, fss_tpu_torch, fss_tpu_torch.api, "
-            "fss_tpu_torch.interop, fss_tpu_torch._build, "
-            "fss_tpu_torch.ops.dcf_cuda, fss_tpu_torch.ops.eval_all_cuda, "
-            "fss_tpu_torch.schemes.dcf; "
+    """Every module of the package (walked, so the list cannot go stale)
+    and chip_smoke import neither JAX nor anything of fss_tpu."""
+    code = ("import importlib, pkgutil, sys, fss_tpu_torch, chip_smoke; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "fss_tpu_torch.__path__, 'fss_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) >= 15, mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fss_tpu' "
             "or m.startswith('fss_tpu.')]; assert not bad, bad")

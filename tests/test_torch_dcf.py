@@ -1,23 +1,31 @@
 """The port's DCF point evaluation against fss_tpu, byte-exact (tolerance
 0: integer crypto), on the CPU.
 
-The JAX side runs ``dcf_pallas.eval_points`` with its kernel in interpret
-mode; the port runs ``dcf_cuda.eval_points``, whose wrapper takes the
-plain PyTorch version for CPU tensors. The ten groups cover all five
-accumulator modes. Gen is held against fss_tpu in test_torch_dcf_gen.py
-(a file of its own, so that the two spread over the test workers).
+The JAX side runs ``fss_tpu.schemes.dcf.eval_points`` under ``jax.jit``,
+which the JAX suite holds equal to its Pallas kernel for these ten groups
+(tests/test_tree_kernels_pallas.py); the ``uint32`` case runs that kernel
+in interpret mode instead. The port runs ``dcf_cuda.eval_points``,
+whose wrapper takes the plain PyTorch version for CPU tensors. The ten
+groups cover all five accumulator modes. Gen is held against fss_tpu in
+test_torch_dcf_gen.py (a file of its own, so that the two spread over the
+test workers).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from fss_tpu import block as jblk
 from fss_tpu import groups as jgroups
 from fss_tpu.ops import dcf_pallas
+from fss_tpu.prg.chacha import ChaCha as JChaCha
+from fss_tpu.schemes import dcf as jdcf
 from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dcf_cuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
 
@@ -47,6 +55,13 @@ def to_cpu(arr):
     return interop.to_torch(arr, device="cpu")
 
 
+def jax_eval(jg, in_bits, s0s, cws, xs):
+    """fss_tpu.schemes.dcf.eval_points of both parties, jitted."""
+    return [np.asarray(y) for y in jax.jit(lambda s, c, x: [
+        jdcf.eval_points(JChaCha(4, NONCE), jg, in_bits, None, p, s[:, p], c,
+                         x) for p in (0, 1)])(jblk.block(s0s), cws, xs)]
+
+
 def _keys(rng, tg, in_bits, B, pred="lt"):
     """A batch of keys from the port's Gen, as uint32 numpy arrays."""
     s0s = rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint32)
@@ -64,11 +79,14 @@ def test_eval_matches_jax_kernel(gname, rng):
     jg, tg = groups_pair(gname)
     s0s, alphas, betas, cws = _keys(rng, tg, in_bits, B)
     xs = rng.integers(0, 2**in_bits, size=B, dtype=np.uint32)
+    if gname == "uint32":
+        wants = [np.asarray(dcf_pallas.eval_points(
+            NONCE, jg, in_bits, p, s0s[:, p], cws, xs, block_rows=8,
+            interpret=True)) for p in (0, 1)]
+    else:
+        wants = jax_eval(jg, in_bits, s0s, cws, xs)
     shares = []
-    for party in (0, 1):
-        want = np.asarray(dcf_pallas.eval_points(
-            NONCE, jg, in_bits, party, s0s[:, party], cws, xs,
-            block_rows=8, interpret=True))
+    for party, want in enumerate(wants):
         got = dcf_cuda.eval_points(NONCE, tg, in_bits, party,
                                    to_cpu(s0s[:, party]), to_cpu(cws),
                                    to_cpu(xs))
@@ -91,10 +109,7 @@ def test_eval_wide_domain_matches_jax_kernel(rng):
     xs = [a + int(d) for a, d in zip(alphas, rng.integers(-2, 3, size=B))]
     xs = [x % (1 << in_bits) for x in xs]
     x_lanes = tblk.to_numpy(tblk.pack_inputs(xs, in_bits, "cpu"))
-    for party in (0, 1):
-        want = np.asarray(dcf_pallas.eval_points(
-            NONCE, jg, in_bits, party, s0s[:, party], cws, x_lanes,
-            block_rows=8, interpret=True))
+    for party, want in enumerate(jax_eval(jg, in_bits, s0s, cws, x_lanes)):
         got = dcf_cuda.eval_points(NONCE, tg, in_bits, party,
                                    to_cpu(s0s[:, party]), to_cpu(cws),
                                    to_cpu(x_lanes))

@@ -1,13 +1,15 @@
 """The port's DCF EvalAll against fss_tpu, byte-exact (tolerance 0:
 integer crypto), on the CPU.
 
-The JAX side runs ``eval_all_pallas.dcf_eval_all`` with its expansion
-kernel in interpret mode (13 bits, the kernel's floor there) for the
-groups that kernel takes, and ``fss_tpu.schemes.dcf.eval_all`` for a
-128-bit non-power-of-two modulus. The port runs every level through its
-expansion wrapper, which on the CPU takes the plain PyTorch version.
+The JAX side runs ``fss_tpu.schemes.dcf.eval_all`` under ``jax.jit``,
+which the JAX suite holds equal to its expansion kernel
+(tests/test_tree_kernels_pallas.py); the ``uint32`` case runs that kernel
+in interpret mode instead (13 bits, the kernel's floor there). The
+port runs every level through its expansion wrapper, which on the CPU
+takes the plain PyTorch version.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dcf_cuda, eval_all_cuda
 from fss_tpu_torch.prg.chacha import ChaCha as TChaCha
 from fss_tpu_torch.schemes import dcf as tdcf
+from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
 
@@ -42,6 +45,13 @@ def _key(rng, in_bits, jg, alpha):
     return s0s, cws
 
 
+def jax_eval_all(jg, in_bits, s0s, cws):
+    """fss_tpu.schemes.dcf.eval_all of both parties, jitted."""
+    return [np.asarray(y) for y in jax.jit(lambda s, c: [
+        jdcf.eval_all(JChaCha(4, NONCE), jg, in_bits, p, s[p], c)
+        for p in (0, 1)])(jblk.block(s0s), cws)]
+
+
 def _check_lt(tg, shares, alpha):
     """y0 + y1 is the same nonzero value below alpha, and zero from it."""
     rec = tblk.to_numpy(tg.add(tg.from_block(shares[0]),
@@ -56,11 +66,14 @@ def test_eval_all_matches_jax_kernel(gname, rng):
     jg, tg = {"uint32": (jgroups.Uint(32), tgroups.Uint(32)),
               "bytes": (jgroups.Bytes(), tgroups.Bytes())}[gname]
     s0s, cws = _key(rng, in_bits, jg, alpha)
+    if gname == "uint32":
+        wants = [np.asarray(eval_all_pallas.dcf_eval_all(
+            JChaCha(4, NONCE), jg, in_bits, p, jblk.block(s0s[p]), cws,
+            interpret=True)) for p in (0, 1)]
+    else:
+        wants = jax_eval_all(jg, in_bits, s0s, cws)
     shares = []
-    for party in (0, 1):
-        want = np.asarray(eval_all_pallas.dcf_eval_all(
-            JChaCha(4, NONCE), jg, in_bits, party, jblk.block(s0s[party]),
-            cws, interpret=True))
+    for party, want in enumerate(wants):
         got = eval_all_cuda.dcf_eval_all(TChaCha(4, NONCE), tg, in_bits,
                                          party, to_cpu(s0s[party]),
                                          to_cpu(cws))
@@ -77,9 +90,7 @@ def test_eval_all_mod128np_matches_jax_scheme(rng):
     jg, tg = jgroups.Uint(*spec), tgroups.Uint(*spec)
     s0s, cws = _key(rng, in_bits, jg, alpha)
     shares = []
-    for party in (0, 1):
-        want = np.asarray(jdcf.eval_all(JChaCha(4, NONCE), jg, in_bits, party,
-                                        jblk.block(s0s[party]), cws))
+    for party, want in enumerate(jax_eval_all(jg, in_bits, s0s, cws)):
         got = eval_all_cuda.dcf_eval_all(TChaCha(4, NONCE), tg, in_bits,
                                          party, to_cpu(s0s[party]),
                                          to_cpu(cws))

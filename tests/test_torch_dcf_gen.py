@@ -22,6 +22,7 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dcf_cuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
 

@@ -1,9 +1,11 @@
 """The port's DPF Gen and point Eval against fss_tpu, byte-exact.
 
-Tolerance is 0 throughout (integer crypto). The JAX side runs its Pallas
-kernels in interpret mode, as tests/test_dpf_pallas.py does, and its
-plain scheme code; the port runs on the CPU, where each kernel wrapper
-takes its plain PyTorch version.
+Tolerance is 0 throughout (integer crypto). The JAX side is its scheme
+code under ``jax.jit``, which the JAX suite holds equal to its Pallas
+kernels (tests/test_dpf_pallas.py), except where a ``uint32`` case runs
+those kernels in interpret mode instead: once each, at this file's
+shape. The port runs on the CPU, where each kernel wrapper takes its
+plain PyTorch version.
 """
 
 import jax
@@ -22,6 +24,7 @@ from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dpf_cuda
 from fss_tpu_torch.prg.chacha import ChaCha as TChaCha
 from fss_tpu_torch.schemes import dpf as tdpf
+from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0xABCD1234, 0x55AA55AA)
 B = 300  # not a multiple of anything the kernels tile by
@@ -50,21 +53,42 @@ def to_cpu(arr):
     return interop.to_torch(arr, device="cpu")
 
 
+def jax_gen(jg, in_bits, s0s, a_lanes, betas):
+    """fss_tpu.schemes.dpf.gen over a batch of keys, jitted."""
+    prg = JChaCha(2, NONCE)
+    return np.asarray(jax.jit(jax.vmap(
+        lambda s, a, b: jdpf.gen(prg, jg, in_bits, s, a, b)))(
+            jblk.block(s0s), a_lanes, jblk.block(betas)))
+
+
+def jax_eval(jg, in_bits, party, s0, cws, xs):
+    """fss_tpu.schemes.dpf.eval_points, jitted."""
+    return np.asarray(jax.jit(lambda s, c, x: jdpf.eval_points(
+        JChaCha(2, NONCE), jg, in_bits, party, s, c, x))(
+            jblk.block(s0), cws, xs))
+
+
+# The group whose cases run the JAX kernels in interpret mode.
+INTERPRET = "uint32"
+
+
 @pytest.mark.parametrize("party", [0, 1])
 @pytest.mark.parametrize("gname", list(GROUPS))
 def test_eval_matches_jax(gname, party, rng):
     in_bits = 8
     jg, tg = GROUPS[gname]
     s0s, alphas, betas, xs = _inputs(rng, in_bits)
-    cws = np.asarray(dpf_pallas.gen_batch(
-        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
-        block_rows=8, interpret=True))
-    want = np.asarray(dpf_pallas.eval_points(
-        NONCE, jg, in_bits, party, jblk.block(s0s[:, party]), cws, xs,
-        block_rows=8, interpret=True))
-    ref = np.asarray(jdpf.eval_points(JChaCha(2, NONCE), jg, in_bits, party,
-                                      jblk.block(s0s[:, party]), cws, xs))
-    assert np.array_equal(want, ref)
+    if gname == INTERPRET and party == 0:
+        cws = np.asarray(dpf_pallas.gen_batch(
+            NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
+            block_rows=8, interpret=True))
+        want = np.asarray(dpf_pallas.eval_points(
+            NONCE, jg, in_bits, party, jblk.block(s0s[:, party]), cws, xs,
+            block_rows=8, interpret=True))
+    else:
+        cws = jax_gen(jg, in_bits, s0s, jblk.pack_inputs(alphas, in_bits),
+                      betas)
+        want = jax_eval(jg, in_bits, party, s0s[:, party], cws, xs)
 
     s0, kc, kx = (to_cpu(s0s[:, party]), to_cpu(cws),
                   to_cpu(xs))
@@ -80,9 +104,13 @@ def test_gen_matches_jax(gname, rng):
     in_bits = 8
     jg, tg = GROUPS[gname]
     s0s, alphas, betas, _ = _inputs(rng, in_bits)
-    want = np.asarray(dpf_pallas.gen_batch(
-        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
-        block_rows=8, interpret=True))
+    if gname == INTERPRET:
+        want = np.asarray(dpf_pallas.gen_batch(
+            NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
+            block_rows=8, interpret=True))
+    else:
+        want = jax_gen(jg, in_bits, s0s, jblk.pack_inputs(alphas, in_bits),
+                       betas)
     ts0s, ta, tb = (to_cpu(s0s), to_cpu(alphas),
                     to_cpu(betas))
     cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(ts0s, ta, in_bits, NONCE)
@@ -100,12 +128,14 @@ def test_gen_matches_jax(gname, rng):
 
 
 def test_packed_keys_from_jax_match_wire_path(rng):
-    in_bits = 9
+    """The JAX kernel's packed layout (in interpret mode, at the shape of
+    the cases above, so the process compiles it once) crosses to the
+    port's PackedDpfKeys."""
+    in_bits = 8
     jg, tg = GROUPS["uint32"]
     s0s, alphas, betas, xs = _inputs(rng, in_bits)
-    wire = np.asarray(dpf_pallas.gen_batch(
-        NONCE, jg, in_bits, jblk.block(s0s), alphas, jblk.block(betas),
-        block_rows=8, interpret=True))
+    wire = jax_gen(jg, in_bits, s0s, jblk.pack_inputs(alphas, in_bits),
+                   betas)
     cws_t, ocw, _ = dpf_pallas.gen_batch_packed(
         NONCE, jg, in_bits, jax.numpy.asarray(jblk.block(s0s)), alphas,
         jax.numpy.asarray(jblk.block(betas)), block_rows=8, interpret=True)
@@ -125,9 +155,7 @@ def test_packed_keys_from_jax_match_wire_path(rng):
         via_packed = dpf_cuda.eval_points_packedkey(
             NONCE, tg, in_bits, party, s0, keys.cws_p, keys.ocw, tx)
         assert torch.equal(via_packed, via_wire)
-        want = np.asarray(jdpf.eval_points(JChaCha(2, NONCE), jg, in_bits,
-                                           party, jblk.block(s0s[:, party]),
-                                           wire, xs))
+        want = jax_eval(jg, in_bits, party, s0s[:, party], wire, xs)
         assert np.array_equal(_np(via_wire), want)
 
 
@@ -135,16 +163,13 @@ def test_wide_domain_matches_jax(rng):
     in_bits = 48
     batch = 20
     jg, tg = GROUPS["bytes"]
-    prg = JChaCha(2, NONCE)
     s0s = rng.integers(0, 2**32, size=(batch, 2, 4), dtype=np.uint32)
     betas = rng.integers(0, 2**32, size=(batch, 4), dtype=np.uint32)
     alphas = [int(v) for v in rng.integers(0, 2**48, size=batch)]
     xs = [a if i % 2 == 0 else a ^ (1 << (i % 48))
           for i, a in enumerate(alphas)]
-    a_lanes = jblk.pack_inputs(alphas, in_bits)
-    want = np.asarray(jax.vmap(
-        lambda s, a, b: jdpf.gen(prg, jg, in_bits, s, a, b))(
-            jblk.block(s0s), a_lanes, jblk.block(betas)))
+    want = jax_gen(jg, in_bits, s0s, jblk.pack_inputs(alphas, in_bits),
+                   betas)
     ts0s, ta = to_cpu(s0s), tblk.pack_inputs(alphas, in_bits)
     cws = dpf_cuda.gen_batch(NONCE, tg, in_bits, ts0s, ta,
                              to_cpu(betas))
@@ -153,9 +178,8 @@ def test_wide_domain_matches_jax(rng):
     x_lanes = tblk.pack_inputs(xs, in_bits)
     shares = []
     for party in (0, 1):
-        ref = np.asarray(jdpf.eval_points(
-            prg, jg, in_bits, party, jblk.block(s0s[:, party]), want,
-            jblk.pack_inputs(xs, in_bits)))
+        ref = jax_eval(jg, in_bits, party, s0s[:, party], want,
+                       jblk.pack_inputs(xs, in_bits))
         got = dpf_cuda.eval_points(NONCE, tg, in_bits, party,
                                    ts0s[:, party].contiguous(), cws, x_lanes)
         assert np.array_equal(_np(got), ref)

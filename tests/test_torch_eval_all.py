@@ -1,10 +1,13 @@
 """The port's DPF EvalAll against fss_tpu, byte-exact.
 
-The JAX side runs the hybrid EvalAll with its expansion kernel in
-interpret mode; the port runs every level through its expansion
-wrapper, which on the CPU takes the plain PyTorch version.
+The JAX side runs ``fss_tpu.schemes.dpf.eval_all`` under ``jax.jit``,
+which the JAX suite holds equal to its hybrid EvalAll; the 13-bit case
+runs the hybrid EvalAll with its expansion kernel in interpret mode
+instead (one kernel tile). The port runs every level through its
+expansion wrapper, which on the CPU takes the plain PyTorch version.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from fss_tpu_torch import interop
 from fss_tpu_torch.ops import eval_all_cuda
 from fss_tpu_torch.prg.chacha import ChaCha as TChaCha
 from fss_tpu_torch.schemes import dpf as tdpf
+from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0xABCD1234, 0x55AA55AA)
 
@@ -46,11 +50,16 @@ def test_eval_all_matches_jax_kernel(in_bits, gname, alpha, rng):
     jg, tg = {"uint32": (jgroups.Uint(32), tgroups.Uint(32)),
               "bytes": (jgroups.Bytes(), tgroups.Bytes())}[gname]
     s0s, cws = _key(rng, in_bits, jg, alpha)
+    if in_bits == 13:
+        wants = [eval_all_pallas.eval_all(
+            JChaCha(2, NONCE), jg, in_bits, p, jblk.block(s0s[p]), cws,
+            interpret=True) for p in (0, 1)]
+    else:
+        wants = jax.jit(lambda s, c: [
+            jdpf.eval_all(JChaCha(2, NONCE), jg, in_bits, p, s[p], c)
+            for p in (0, 1)])(jblk.block(s0s), cws)
     shares = []
-    for party in (0, 1):
-        want = np.asarray(eval_all_pallas.eval_all(
-            JChaCha(2, NONCE), jg, in_bits, party, jblk.block(s0s[party]),
-            cws, interpret=True))
+    for party, want in enumerate(np.asarray(w) for w in wants):
         got = eval_all_cuda.eval_all(TChaCha(2, NONCE), tg, in_bits, party,
                                      to_cpu(s0s[party]),
                                      to_cpu(cws))
