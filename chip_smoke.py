@@ -6,12 +6,17 @@
 Phases, each printing one line (any failure exits non-zero):
 
   1. device: the card's name, power limit and clocks;
-  2. build: nvcc builds every kernel from csrc/ (registers and spills);
+  2. build: nvcc builds every kernel from csrc/ (registers and spills;
+     the hash kernels' SASS instruction counts beside the model count of
+     their bounds, ``hash_alu``);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, byte-exact (tolerance 0: integer crypto); the DCF kernels in
-     each of their five accumulator modes;
-  4. golden: the reference's ChaCha DPF, DCF and Half-Tree vectors through
-     Dpf("cuda"), Dcf("cuda") and HalfTreeDpf("cuda");
+     each of their five accumulator modes; the hash kernels also on the
+     reference's primitive vectors, and the flat proof chains on 4096
+     points;
+  4. golden: the reference's ChaCha DPF, DCF, Half-Tree and VDPF vectors
+     through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
+     Vdpf("cuda"), the VDPF's reference-fold EvalAll proofs included;
   5. main paths at full size, each with the launch counts zeroed just
      before it and read just after:
      - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
@@ -24,8 +29,14 @@ Phases, each printing one line (any failure exits non-zero):
      - Half-Tree: the same for HalfTreeDpf(16, Uint(32), ChaCha mul=1) with
        a random CCR hash key: 2^20 keys, half the x at alpha, every key
        reconstructed; EvalAll at 20 and 24 bits;
+     - VDPF: Vdpf(16, Uint(32), ChaCha mul=2) keyed with BLAKE3, then with
+       SHA-256: gen_batch of 2^20 keys from a numpy seed, Eval of both
+       parties with half the x at alpha, every key reconstructed and its
+       two pi~ equal, prove and verify over 4096 points of one key;
+       EvalAll of one key at 20 and 24 bits with the tree fold;
   6. timing: CUDA-event times of each kernel and of the entry points at
-     the main-path shapes, beside the bound of the same work.
+     the main-path shapes, beside the bound of the same work; each timed
+     kernel is held against its plain version on the same inputs.
 
 The last lines are the kernels JSON line, the card's name and power limit
 as nvidia-smi gives them, and the result JSON line.
@@ -33,6 +44,7 @@ as nvidia-smi gives them, and the result JSON line.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import pathlib
@@ -59,6 +71,19 @@ CHECK_HT_EVAL_ALL_BITS = (1, 8, 16, 20)
 DPF_SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
 DCF_SOURCES = ("dcf_eval", "dcf_gen", "dcf_eval_all")
 HT_SOURCES = ("ht_eval", "ht_gen", "ht_eval_all")
+VDPF_MAIN_LOG2_KEYS = 20
+VDPF_EVAL_ALL_BITS = (20, 24)
+CHECK_VDPF_EVAL_ALL_BITS = (8, 16)
+VDPF_IV = (0x11111111, 0x22222222, 0x33333333, 0x44444444, 0x55555555,
+           0x66666666, 0x77777777, 0x88888888)  # the JAX bench's
+VDPF_SHA_KEY = (0xA1B2C3D4, 0x11223344, 0x55667788, 0x99AABBCC)
+# The kernels each VDPF main path must launch: the fused eval, the DPF Gen
+# levels, the DPF expansion of EvalAll, and the hash kernels (H' in the
+# tree fold, the one-thread chain in prove).
+VDPF_KERNELS = {
+    h: ("vdpf_eval", "dpf_gen", "dpf_eval_all", f"{h}_xor_hash",
+        f"{h}_hash64", f"{h}_chain") for h in ("blake3", "sha256")}
+CHAIN_ROWS = 4096  # points of the one-thread chain checks and of prove
 SAMPLE = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Peak 32-bit ALU ops: each of an SM's 4 schedulers dispatches one 32-lane
@@ -67,6 +92,106 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # FMA pipe (IMAD), so the 64 INT32 units per SM are not the limit.
 LANES_PER_SM_CLOCK = 128
 CHACHA_OPS = 960  # 10 double rounds x 8 quarter-rounds x 12 ALU ops
+SASS_ALU = ("LOP3", "IADD3", "VIADD", "SHF", "PRMT", "IMAD", "LEA")
+
+
+# The hashes' ALU instructions a row, for the bounds. One count per sm_90
+# instruction: SHF (a rotate or shift), LOP3 (any bitwise function of up
+# to three words), IADD3 (a sum of up to three words), PRMT (a byte swap).
+# A word is (row, dep, zero): "row" if it depends on the row's data; the
+# others (IV or key, padding, zero lanes) fold at compile or launch time
+# and cost nothing. An XorHash's two compressions differ only in the
+# domain bit (lane 3's LSB of a) and what it reaches ("dep"): the second
+# counts only that, the rest is shared with the first.
+ROW, CONST, ZERO, BIT = ((True, False, False), (False, False, False),
+                         (False, False, True), (False, True, False))
+BLAKE3_G = ((0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14), (3, 7, 11, 15),
+            (0, 5, 10, 15), (1, 6, 11, 12), (2, 7, 8, 13), (3, 4, 9, 14))
+BLAKE3_PERM = (2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8)
+
+
+class AluCount:
+    def __init__(self):
+        self.ops, self.second = 0, False
+
+    def op(self, n, *xs):
+        """``n`` instructions of the words ``xs``."""
+        row, dep = any(x[0] for x in xs), any(x[1] for x in xs)
+        if row and (dep or not self.second):
+            self.ops += n
+        return row, dep, all(x[2] for x in xs)
+
+    def xor(self, x, y):
+        return y if x[2] else x if y[2] else self.op(1, x, y)
+
+    def add(self, *xs):
+        """IADD3s over the row terms and one folded constant; the second
+        compression adds its dep terms to the shared partial sum."""
+        rows = [x for x in xs if x[0]]
+        const = any(not x[0] and not x[2] for x in xs)
+        dep = any(x[1] for x in xs)
+        if not self.second:
+            self.ops += (len(rows) + const) // 2
+        elif rows and dep:
+            d = sum(x[1] for x in rows)
+            self.ops += (d + (len(rows) > d) + const) // 2
+        return bool(rows), dep, not rows and not const
+
+
+def blake3_alu(c: AluCount, m) -> None:
+    """One BLAKE3 compression of the message words ``m``."""
+    v = [CONST] * 12 + [ZERO, ZERO, CONST, CONST]
+    for _ in range(7):
+        for i, (a, b, cc, d) in enumerate(BLAKE3_G):
+            for x in m[2 * i:2 * i + 2]:
+                v[a] = c.add(v[a], v[b], x)
+                v[d] = c.op(1, c.xor(v[d], v[a]))
+                v[cc] = c.add(v[cc], v[d])
+                v[b] = c.op(1, c.xor(v[b], v[cc]))
+        m = [m[p] for p in BLAKE3_PERM]
+    for i in range(8):
+        c.xor(v[i], v[i + 8])
+
+
+def sha256_alu(c: AluCount, words) -> None:
+    """One SHA-256 digest of ``words`` (key, message and padding; 16 a
+    block), with the byte swaps in and out."""
+    st = [CONST] * 8
+    for k in range(0, len(words), 16):
+        w = [c.op(1, x) for x in words[k:k + 16]]
+        v = list(st)
+        for t in range(64):
+            j = t % 16
+            if t >= 16:
+                w[j] = c.add(w[j], c.op(4, w[(t + 1) % 16]), w[(t + 9) % 16],
+                             c.op(4, w[(t + 14) % 16]))
+            a, b, cc, d, e, f, g, h = v
+            t1 = c.add(h, c.op(4, e), c.op(1, e, f, g), CONST, w[j])
+            v = [c.add(t1, c.op(4, a), c.op(1, a, b, cc)), a, b, cc,
+                 c.add(d, t1), e, f, g]
+        st = [c.add(x, y) for x, y in zip(st, v)]
+    for x in st:
+        c.op(1, x)
+
+
+def hash_alu(name: str, use: str) -> int:
+    """ALU instructions a row of ``use``: "xor_hash" H(x, b) with x below
+    2^32 (lanes 1-3 zero, as on every main path here) or "hash64" H'."""
+    c = AluCount()
+    if use == "hash64":
+        if name == "blake3":
+            blake3_alu(c, [ROW] * 16)
+        else:
+            sha256_alu(c, [CONST] * 4 + [ROW] * 16 + [CONST] + [ZERO] * 10
+                       + [CONST])
+        return c.ops
+    for c.second in (False, True):
+        x = [ROW, ZERO, ZERO, BIT, ROW, ROW, ROW, ROW]
+        if name == "blake3":
+            blake3_alu(c, x + [ZERO] * 8)
+        else:
+            sha256_alu(c, [CONST] * 4 + x + [CONST, ZERO, ZERO, CONST])
+    return c.ops
 
 
 def log(phase: str, **fields) -> None:
@@ -108,20 +233,47 @@ def same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def kernel_name(mangled: str) -> str:
+    """A mangled entry function -> kernel<template args>. Each name in it
+    follows its length in digits, which may run on from the anonymous
+    namespace's hex digest, so every tail of a digit run is tried."""
+    name = mangled
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            cand = mangled[run.end():run.end() + int(mangled[i:run.end()])]
+            if cand.endswith("_kernel"):
+                name = cand
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_usage(text: str) -> dict:
-    """``ptxas -v`` output -> {kernel<template args>: [registers, spill
-    store bytes]} for each entry function."""
+    """``ptxas -v`` output -> {kernel: [registers, spill store bytes]} for
+    each entry function."""
     usage = {}
     for chunk in text.split("Compiling entry function '")[1:]:
-        mangled = chunk.split("'", 1)[0]
-        kernel = re.search(r"([a-z]+_[a-z_]*_kernel)", mangled)
-        args = re.findall(r"L[ib](\d+)E", mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        key = (kernel.group(1) if kernel else mangled) + (
-            f"<{','.join(args)}>" if args else "")
-        usage[key] = [int(regs.group(1)) if regs else None,
-                      int(spill.group(1)) if spill else None]
+        usage[kernel_name(chunk.split("'", 1)[0])] = [
+            int(regs.group(1)) if regs else None,
+            int(spill.group(1)) if spill else None]
+    return usage
+
+
+def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path) -> dict:
+    """``cuobjdump -sass`` of a library -> {kernel: [instructions, ALU
+    instructions (SASS_ALU)]}: a thread's count for a kernel with no loop,
+    a row's (the loop body, plus a little) for the chains."""
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    usage = {}
+    for chunk in text.split("Function : ")[1:]:
+        ops = [op for op in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", chunk)
+            if op != "NOP"]
+        usage[kernel_name(chunk.split(None, 1)[0])] = [
+            len(ops), sum(op in SASS_ALU for op in ops)]
     return usage
 
 
@@ -132,12 +284,16 @@ def main() -> int:
     from fss_tpu_torch import _build
     from fss_tpu_torch import block as blk
     from fss_tpu_torch import groups
-    from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf
-    from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda
+    from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, Vdpf
+    from fss_tpu_torch.hash import Blake3, Sha256
+    from fss_tpu_torch.ops import (blake3_cuda, dcf_cuda, dpf_cuda,
+                                   eval_all_cuda, ht_cuda, sha256_cuda,
+                                   vdpf_cuda)
     from fss_tpu_torch.prg.chacha import ChaCha
     from fss_tpu_torch.schemes import dcf as plain_dcf
     from fss_tpu_torch.schemes import dpf as plain_dpf
     from fss_tpu_torch.schemes import half_tree_dpf as plain_ht
+    from fss_tpu_torch.schemes import vdpf as plain_vdpf
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(42)
@@ -145,6 +301,18 @@ def main() -> int:
     def words(shape, bits=32):
         return blk.words(rng.integers(0, 2**bits, size=shape,
                                       dtype=np.uint64), dev)
+
+    def hexw(h):
+        return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
+
+    def raw(t):
+        return blk.to_numpy(t).tobytes()
+
+    def plain_xor(hashes):
+        return functools.partial(vdpf_cuda.xor_hash_plain, hashes)
+
+    def plain_h64(hashes):
+        return functools.partial(vdpf_cuda.hash64_plain, hashes)
 
     # 1. device ------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -165,7 +333,13 @@ def main() -> int:
     reports = _build.build()
     build_s = time.perf_counter() - t0
     usage = {name: ptxas_usage(text) for name, text in reports.items()}
-    log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage)
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = {name: sass_usage(cuobjdump, _build.library(name))
+            for name in ("blake3", "sha256", "vdpf_eval")}
+    log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
+        sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
+                             for h in ("blake3", "sha256")
+                             for u in ("xor_hash", "hash64")})
 
     # 3. kernels vs plain versions ----------------------------------------
     checks = []
@@ -320,6 +494,92 @@ def main() -> int:
                                      cws[0], ocw[0])
             checks.append((f"ht_eval_all n={n} party={party}",
                            same(got, want)))
+    # The hash kernels on random rows, on the reference's primitive
+    # vectors, and the one-thread chains on CHAIN_ROWS points.
+    iv = tuple(int(w) for w in rng.integers(0, 2**32, size=8))
+    skey = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
+    vdpf_hashes = {"blake3": Blake3(iv), "sha256": Sha256(skey)}
+    a_rows, b_rows, msgs = words((B, 4)), words((B, 4)), words((B, 4, 4))
+    pts, cs0 = words((CHAIN_ROWS, 4, 4)), words((4, 4))
+    prims = json.loads((GOLDEN / "primitives.json").read_text())
+    for name, hashes in vdpf_hashes.items():
+        checks.append((f"{name} xor_hash", same(
+            vdpf_cuda.xor_hash(hashes, a_rows, b_rows),
+            vdpf_cuda.xor_hash_plain(hashes, a_rows, b_rows))))
+        checks.append((f"{name} hash64", same(
+            vdpf_cuda.hash64(hashes, msgs),
+            vdpf_cuda.hash64_plain(hashes, msgs))))
+        checks.append((f"{name} chain {CHAIN_ROWS}", same(
+            vdpf_cuda.prove(hashes, pts, cs0),
+            vdpf_cuda.prove_plain(hashes, pts, cs0))))
+        for i, e in enumerate(prims[name]):
+            h = type(hashes)(hexw(e["iv" if name == "blake3" else "key"]))
+            x, sd = (blk.words(hexw(e[f]), dev)[None] for f in ("x", "s"))
+            got = vdpf_cuda.xor_hash(h, x, sd)
+            checks.append((f"{name} primitive {i} xor_hash",
+                           raw(got) == bytes.fromhex(e["xor_hash"])
+                           and same(got, vdpf_cuda.xor_hash_plain(h, x, sd))))
+            m = blk.words(hexw(e["msg"]).reshape(1, 4, 4), dev)
+            got = vdpf_cuda.hash64(h, m)
+            checks.append((f"{name} primitive {i} hash64",
+                           raw(got) == bytes.fromhex(e["hash"])
+                           and same(got, vdpf_cuda.hash64_plain(h, m))))
+
+    # The fused VDPF eval, Gen (DPF Gen levels into VDPF rows + H), and
+    # the DPF Gen's VDPF rows alone.
+    vg = groups.Uint(32)
+    prg2 = ChaCha(2, NONCE)
+    for n in (16, 128):
+        s0s, betas = words((B, 2, 4)), words((B, 4))
+        lanes = domain(words((B, 4)), n)
+        xs = lanes.clone()
+        xs[1::2, 0] ^= 1
+        xs = kernel_inputs(xs, n)
+        alphas = kernel_inputs(lanes, n)
+        got = dpf_cuda.gen_packed(s0s, alphas, n, NONCE, ocw_row=False)
+        want = dpf_cuda.gen_packed_plain(s0s, alphas, n, NONCE,
+                                         ocw_row=False)
+        checks.append((f"dpf_gen n={n} vdpf rows", same(got, want)))
+        for name, hashes in vdpf_hashes.items():
+            keys = vdpf_cuda.gen_batch(NONCE, hashes, vg, n, s0s, alphas,
+                                       betas)
+            checks.append((f"vdpf gen {name} n={n}", same(keys, plain_vdpf.gen(
+                prg2, plain_xor(hashes), vg, n, s0s, lanes, betas))))
+            cws = keys[0]
+            for party in (0, 1):
+                cases = {
+                    "wire": (s0s[:, party].contiguous(), cws),
+                    "broadcast": (s0s[0, party].contiguous(),
+                                  cws[0].contiguous()),
+                }
+                for label, (s0, k) in cases.items():
+                    got = vdpf_cuda.eval_packed(s0, k, xs, n, party, NONCE,
+                                                hashes)
+                    want = vdpf_cuda.eval_packed_plain(s0, k, xs, n, party,
+                                                       NONCE, hashes)
+                    checks.append((f"vdpf_eval {name} n={n} {label} "
+                                   f"party={party}", same(got, want)))
+    # VDPF EvalAll: the tree fold for both hashes; the chunked and
+    # reference folds for BLAKE3 at 8 bits (their plain versions chain one
+    # row at a time through the plain hash).
+    for n in CHECK_VDPF_EVAL_ALL_BITS:
+        for name, hashes in vdpf_hashes.items():
+            s0s, beta = words((1, 2, 4)), words((1, 4))
+            key = [t[0] for t in vdpf_cuda.gen_batch(
+                NONCE, hashes, vg, n, s0s, blk.pack_inputs(
+                    [int(rng.integers(0, 2**n))], n, dev), beta)][:3]
+            folds = ("tree",) + (("chunked", "reference")
+                                 if n <= 8 and name == "blake3" else ())
+            for fold in folds:
+                for party in (0, 1):
+                    got = eval_all_cuda.vdpf_eval_all(
+                        prg2, hashes, vg, n, party, s0s[0, party], *key,
+                        fold)
+                    want = plain_vdpf.eval_all(
+                        prg2, plain_xor(hashes), plain_h64(hashes), vg, n,
+                        party, s0s[0, party], *key, fold)
+                    checks.append((f"vdpf_eval_all {name} n={n} {fold} "
+                                   f"party={party}", same(got, want)))
     torch.cuda.synchronize()
     bad = [name for name, ok in checks if not ok]
     log("kernels", checked=len(checks), mismatches=bad)
@@ -331,12 +591,6 @@ def main() -> int:
             "uint64": groups.Uint(64),
             "uint127": groups.Uint(128, 1 << 127),
             "uint127m": groups.Uint(128, (1 << 127) - 1)}
-
-    def hexw(h):
-        return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
-
-    def raw(t):
-        return blk.to_numpy(t).tobytes()
 
     def golden_case(scheme, case, failures):
         n = case["in_bits"]
@@ -370,16 +624,62 @@ def main() -> int:
                         != case[f"eval_all_digest{party}"]):
                     failures.append(f"{tag} eval_all party{party}")
 
+    def vdpf_golden_case(case, failures):
+        """Gen bytes, ys and pi~ of both parties, prove_pi, and EvalAll's
+        digest and proof with the reference fold."""
+        n = case["in_bits"]
+        if case["hash"] == "sha256":
+            hashes = Sha256(hexw(case["hash_key"]))
+        else:
+            hashes = Blake3(np.concatenate([hexw(h)
+                                            for h in case["blake3_iv"]]))
+        d = Vdpf(n, gmap[case["group"]],
+                 ChaCha(2, (case["nonce_lo"], case["nonce_hi"])),
+                 hashes=hashes)
+        tag = f"vdpf {case['hash']}-{case['group']}-{n}"
+        s0s = np.stack([hexw(h) for h in case["s0s"]])
+        cws, cs, ocw, fail = d.gen(s0s, int(case["alpha"], 0),
+                                   hexw(case["beta"]))
+        if (int(fail) or raw(cws) != np.stack(
+                [hexw(r) for r in case["cws"]]).tobytes()
+                or raw(cs) != b"".join(bytes.fromhex(h) for h in case["cs"])
+                or raw(ocw) != bytes.fromhex(case["ocw"])):
+            failures.append(f"{tag} gen")
+        xs = [int(x, 0) for x in case["xs"]]
+        for party in (0, 1):
+            ys, pis = d.eval(party, s0s[party], cws, cs, ocw, xs)
+            if raw(ys) != b"".join(bytes.fromhex(h)
+                                   for h in case[f"ys{party}"]):
+                failures.append(f"{tag} eval party{party}")
+            if raw(pis) != b"".join(bytes.fromhex(h)
+                                    for h in case[f"pi_tildes{party}"]):
+                failures.append(f"{tag} pi_tildes party{party}")
+            if raw(d.prove(pis, cs)) != bytes.fromhex(
+                    case[f"prove_pi{party}"]):
+                failures.append(f"{tag} prove party{party}")
+            if "eval_all_digest0" in case:
+                ys, pi = d.eval_all(party, s0s[party], cws, cs, ocw,
+                                    "reference")
+                if (hashlib.sha256(raw(ys)).hexdigest()
+                        != case[f"eval_all_digest{party}"]
+                        or raw(pi) != bytes.fromhex(
+                            case[f"eval_all_pi{party}"])):
+                    failures.append(f"{tag} eval_all party{party}")
+
     failures, counts = [], {}
-    for scheme in ("dpf", "dcf", "half_tree"):
+    for scheme in ("dpf", "dcf", "half_tree", "vdpf"):
         golden = [c for c in json.loads((GOLDEN / f"{scheme}.json")
                                         .read_text())["cases"]
                   if c["prg"] == "chacha"]
         counts[scheme] = len(golden)
         for case in golden:
-            golden_case(scheme, case, failures)
+            if scheme == "vdpf":
+                vdpf_golden_case(case, failures)
+            else:
+                golden_case(scheme, case, failures)
     log("golden", cases=counts, failures=failures)
-    if failures or counts != {"dpf": 6, "dcf": 6, "half_tree": 4}:
+    if failures or counts != {"dpf": 6, "dcf": 6, "half_tree": 4,
+                              "vdpf": 4}:
         return 1
 
     # 5. main paths at full size ------------------------------------------
@@ -556,6 +856,88 @@ def main() -> int:
         return 1
     launches.update(hlaunches)
 
+    # 5d. VDPF keyed with BLAKE3, then with SHA-256: x at alpha on even
+    # keys, elsewhere on odd ones; one key proved over CHAIN_ROWS points.
+    vkeys = 1 << VDPF_MAIN_LOG2_KEYS
+    valphas = words((vkeys,), MAIN_BITS)
+    vbetas = words((vkeys, 4))
+    vxs = valphas.clone()
+    vxs[1::2] ^= 1 + words((vkeys // 2,), MAIN_BITS - 1)  # != alpha
+    pxs = words((CHAIN_ROWS,), MAIN_BITS)
+    vn_ea = max(VDPF_EVAL_ALL_BITS)
+    vea_alpha, vea_beta = int(rng.integers(0, 2**vn_ea)), words((4,))
+    vmain, vlaunches = {}, {}
+    for name, hashes in (("blake3", Blake3(VDPF_IV)),
+                         ("sha256", Sha256(VDPF_SHA_KEY))):
+        vd = Vdpf(MAIN_BITS, vg, ChaCha(2, NONCE), hashes=hashes)
+        vea_d = {n: Vdpf(n, vg, ChaCha(2, NONCE), hashes=hashes)
+                 for n in VDPF_EVAL_ALL_BITS}
+        torch.cuda.synchronize()
+
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        key = vd.gen_batch(np.random.default_rng(7), valphas, vbetas)
+        vs0s = key[0]
+        y0, p0 = vd.eval(0, vs0s[:, 0].contiguous(), *key[1:], vxs)
+        y1, p1 = vd.eval(1, vs0s[:, 1].contiguous(), *key[1:], vxs)
+        vrec = vg.add(vg.from_block(y0), vg.from_block(y1))
+        one = [vd.eval(p, vs0s[0, p].contiguous(), key[1][0], key[2][0],
+                       key[3][0], pxs)[1] for p in (0, 1)]
+        proofs = [vd.prove(q, key[2][0]) for q in one]
+        verified = vd.verify(*proofs)
+        vea_k, vea_rec, vea_ok, peak = {}, {}, True, 0
+        for n, ed in vea_d.items():
+            a = vea_alpha % (1 << n)
+            vea_k[n] = ed.gen_retry(np.random.default_rng(8), a, vea_beta)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            es0s, ekey = vea_k[n][0], vea_k[n][1:]
+            e0, ep0 = ed.eval_all(0, es0s[0], *ekey, fold="tree")
+            e1, ep1 = ed.eval_all(1, es0s[1], *ekey, fold="tree")
+            vea_rec[n] = (vg.add(vg.from_block(e0), vg.from_block(e1)), a)
+            vea_ok &= ed.verify(ep0, ep1)
+            del e0, e1
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        torch.cuda.synchronize()
+        vmain_s = time.perf_counter() - t0
+        vlaunches[name] = {k: _build.launches[k] for k in VDPF_KERNELS[name]}
+
+        want = torch.zeros_like(vrec)
+        want[0::2, 0] = vbetas[0::2, 0]
+        vrec_ok = torch.equal(vrec, want)
+        pi_ok = torch.equal(p0, p1)
+        sample = plain_vdpf.gen(prg2, plain_xor(hashes), vg, MAIN_BITS,
+                                vs0s[:SAMPLE], blk.pack_inputs(
+                                    valphas[:SAMPLE], MAIN_BITS),
+                                vbetas[:SAMPLE])
+        vsample_ok = same(tuple(k[:SAMPLE] for k in key[1:]), sample[:3])
+        vsample_ok &= not sample[3].any()
+        vsample_ok &= same((y1[:SAMPLE], p1[:SAMPLE]), plain_vdpf.eval_points(
+            prg2, plain_xor(hashes), vg, MAIN_BITS, 1, vs0s[:SAMPLE, 1],
+            key[1][:SAMPLE], key[2][:SAMPLE], key[3][:SAMPLE],
+            blk.pack_inputs(vxs[:SAMPLE], MAIN_BITS)))
+        for n, (r, a) in vea_rec.items():
+            expect = torch.zeros_like(r)
+            expect[a, 0] = vea_beta[0]
+            vea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
+        log("main_path", scheme="vdpf", hash=name, keys=vkeys,
+            in_bits=MAIN_BITS, group=vg.name, seconds=round(vmain_s, 3),
+            reconstruct_ok=vrec_ok, pi_tildes_equal=pi_ok,
+            prove_points=CHAIN_ROWS, verify_ok=verified,
+            sample_vs_plain_ok=vsample_ok,
+            eval_all_bits=list(vea_d), eval_all_fold="tree",
+            eval_all_ok=vea_ok, eval_all_peak_bytes=peak,
+            launches=vlaunches[name])
+        if not (vrec_ok and pi_ok and verified and vsample_ok and vea_ok
+                and all(v > 0 for v in vlaunches[name].values())):
+            return 1
+        vmain[name] = (vd, key, vea_d, vea_k)
+    launches.update({k: vlaunches["blake3"][k] for k in (
+        "vdpf_eval", "blake3_xor_hash", "blake3_hash64")})
+    launches["sha256_xor_hash"] = vlaunches["sha256"]["sha256_xor_hash"]
+
     # 6. timing at the main-path shapes -----------------------------------
     s0 = s0s[:, 0].contiguous()
     ev = (s0, cws, xs, MAIN_BITS, 0, NONCE)
@@ -593,6 +975,14 @@ def main() -> int:
     def ht_plain_expand():
         return eval_all_cuda.ht_expand_leaves(
             *hexpand_args, expand=eval_all_cuda.ht_expand_packed_plain)
+
+    vd, vkey, vea_d, vea_k = vmain["blake3"]
+    vsd, vskey = vmain["sha256"][:2]
+    h_a = torch.zeros((vkeys, 4), dtype=torch.int32, device=dev)
+    h_a[:, 0] = valphas  # Gen's H(alpha, leaf seed) rows
+    h_b, h_m = words((vkeys, 4)), words((vkeys, 4, 4))
+    vev = (vkey[0][:, 0].contiguous(), vkey[1], vxs, MAIN_BITS, 0, NONCE,
+           vd.hashes)
 
     kernels = [
         ("dpf_eval", "fss_tpu_torch/csrc/dpf_eval.cu",
@@ -656,6 +1046,31 @@ def main() -> int:
          ht_kernel_expand, ht_plain_expand,
          ((1 << (hn_ea - 1)) - 1 + (1 << hn_ea)) * CHACHA_OPS,
          16 + hn_ea * 20 + (1 << hn_ea) * (16 + 4)),
+        # a and b 16 B in, 64 B out a row; two compressions.
+        ("blake3_xor_hash", "fss_tpu_torch/csrc/blake3.cu",
+         "fss_tpu/ops/blake3_pallas.py:135",
+         lambda: blake3_cuda.xor_hash(VDPF_IV, h_a, h_b),
+         lambda: blake3_cuda.xor_hash_plain(VDPF_IV, h_a, h_b),
+         vkeys * hash_alu("blake3", "xor_hash"), vkeys * (16 + 16 + 64)),
+        # 64 B in, 32 B out a row; one compression.
+        ("blake3_hash64", "fss_tpu_torch/csrc/blake3.cu",
+         "fss_tpu/ops/blake3_pallas.py:171",
+         lambda: blake3_cuda.hash64(VDPF_IV, h_m),
+         lambda: blake3_cuda.hash64_plain(VDPF_IV, h_m),
+         vkeys * hash_alu("blake3", "hash64"), vkeys * (64 + 32)),
+        ("sha256_xor_hash", "fss_tpu_torch/csrc/sha256.cu",
+         "fss_tpu/ops/sha256_pallas.py:129",
+         lambda: sha256_cuda.xor_hash(VDPF_SHA_KEY, h_a, h_b),
+         lambda: sha256_cuda.xor_hash_plain(VDPF_SHA_KEY, h_a, h_b),
+         vkeys * hash_alu("sha256", "xor_hash"), vkeys * (16 + 16 + 64)),
+        # seed 16 B, 20 B of cw a level, x 4 B in; seed 16 B, t 4 B and pi
+        # 64 B out. The walk's blocks and the BLAKE3 XorHash.
+        ("vdpf_eval", "fss_tpu_torch/csrc/vdpf_eval.cu",
+         "fss_tpu/ops/vdpf_pallas.py:115",
+         lambda: vdpf_cuda.eval_packed(*vev),
+         lambda: vdpf_cuda.eval_packed_plain(*vev),
+         vkeys * (MAIN_BITS * CHACHA_OPS + hash_alu("blake3", "xor_hash")),
+         vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)),
     ]
     rows = []
     for name, src, replaces, kern, plain, ops, nbytes in kernels:
@@ -716,6 +1131,81 @@ def main() -> int:
         ht_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
                                  for n, ms in hea_ms.items()},
         ht_eval_all_ms=hea_ms,
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+
+    # The VDPF: the SHA-256 H' and fused eval (held against their plain
+    # versions at this size too), the one-thread chains, the entry points,
+    # gen_batch's host draws, and EvalAll's parts at 24 bits.
+    sev = vev[:-1] + (vsd.hashes,)
+    sha_h64 = (lambda: sha256_cuda.hash64(VDPF_SHA_KEY, h_m),
+               lambda: sha256_cuda.hash64_plain(VDPF_SHA_KEY, h_m))
+    sha_eval = (lambda: vdpf_cuda.eval_packed(*sev),
+                lambda: vdpf_cuda.eval_packed_plain(*sev))
+    sha_err = {"sha256_hash64": max_abs_err(*(f() for f in sha_h64)),
+               "vdpf_eval sha256": max_abs_err(*(f() for f in sha_eval))}
+    log("kernels_vs_plain", rows=vkeys, max_abs_err=sha_err)
+    if any(sha_err.values()):
+        return 1
+    sha_h64 = (cuda_ms(sha_h64[0], 20), cuda_ms(sha_h64[1], 2),
+               bound(vkeys * hash_alu("sha256", "hash64"), vkeys * 96))
+    sha_eval = (cuda_ms(sha_eval[0], 20), cuda_ms(sha_eval[1], 2),
+                bound(vkeys * (MAIN_BITS * CHACHA_OPS
+                               + hash_alu("sha256", "xor_hash")),
+                      vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)))
+    chain_ms = {name: cuda_ms(lambda h=v[0].hashes: vdpf_cuda.prove(
+        h, pts, cs0), 3) for name, v in vmain.items()}
+    t0 = time.perf_counter()
+    draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blk.words(draws, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    vtimes = {}
+    for name, (d_, key, _, _) in vmain.items():
+        vtimes[name] = (
+            cuda_ms(lambda d_=d_, key=key: d_.eval(
+                0, key[0][:, 0].contiguous(), *key[1:], vxs), 10),
+            cuda_ms(lambda d_=d_: d_.gen_batch(np.random.default_rng(7),
+                                               valphas, vbetas), 3))
+    vea_ms = {f"{name} {n}": cuda_ms(lambda e=ed[n], k=ek[n]: e.eval_all(
+        0, k[0][0], *k[1:], fold="tree"), 3)
+        for name, (_, _, ed, ek) in vmain.items() for n in VDPF_EVAL_ALL_BITS}
+    es, et = eval_all_cuda.expand_leaves(vd.prg, vn_ea, 0,
+                                         vea_k[vn_ea][0][0],
+                                         vea_k[vn_ea][1])
+    ex = plain_vdpf.domain_lanes(vn_ea, dev)
+    epts = blake3_cuda.xor_hash(VDPF_IV, ex, es)
+    vea_parts = {
+        "expand_ms": cuda_ms(lambda: eval_all_cuda.expand_leaves(
+            vd.prg, vn_ea, 0, vea_k[vn_ea][0][0], vea_k[vn_ea][1]), 3),
+        "pi_tilde_ms": cuda_ms(lambda: blake3_cuda.xor_hash(VDPF_IV, ex, es),
+                               3),
+        "tree_fold_ms": cuda_ms(lambda: vdpf_cuda.fold(
+            vd.hashes, epts, vea_k[vn_ea][2], "tree"), 3)}
+    del es, et, ex, epts
+    log("timing", scheme="vdpf", card=kind,
+        power_limit=smi.split(",")[-1].strip(),
+        vdpf_eval_per_s={n: vkeys / (t[0] / 1e3) for n, t in vtimes.items()},
+        vdpf_eval_ms={n: t[0] for n, t in vtimes.items()},
+        vdpf_gen_keys_per_s={n: vkeys / (t[1] / 1e3)
+                             for n, t in vtimes.items()},
+        vdpf_gen_batch_ms={n: t[1] for n, t in vtimes.items()},
+        gen_batch_host_draw_ms=draw_s * 1e3,
+        gen_batch_stage_ms=stage_s * 1e3,
+        vdpf_eval_sha256_kernel_ms=sha_eval[0],
+        vdpf_eval_sha256_plain_ms=sha_eval[1],
+        vdpf_eval_sha256_bound_ms=sha_eval[2],
+        sha256_hash64_ms=sha_h64[0], sha256_hash64_plain_ms=sha_h64[1],
+        sha256_hash64_bound_ms=sha_h64[2],
+        sha256_hash64_launches=vlaunches["sha256"]["sha256_hash64"],
+        chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms}
+                  for n, ms in chain_ms.items()},
+        vdpf_eval_all_items_per_s={
+            k: (1 << int(k.split()[1])) / (ms / 1e3)
+            for k, ms in vea_ms.items()},
+        vdpf_eval_all_ms=vea_ms, vdpf_eval_all_parts={vn_ea: vea_parts},
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
 

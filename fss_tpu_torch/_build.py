@@ -9,7 +9,9 @@ later process reuses them and an edited source is rebuilt.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when
-that is not 0 and counts the launch in :data:`launches`.
+that is not 0 and counts the launch in :data:`launches`, by kernel: a
+source with one kernel counts under its own name, and ``blake3.cu`` and
+``sha256.cu`` under one name per entry point (``KERNELS``).
 """
 
 from __future__ import annotations
@@ -28,13 +30,18 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "fss_tpu_torch"
 SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
-           "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all")
-HEADERS = ("chacha.cuh", "group.cuh", "dcf_acc.cuh")  # digested by every .so
+           "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all", "blake3",
+           "sha256", "vdpf_eval")
+HEADERS = ("chacha.cuh", "group.cuh", "dcf_acc.cuh", "dpf_walk.cuh",
+           "blake3.cuh", "sha256.cuh")  # digested by every .so
+KERNELS = (*(s for s in SOURCES if s not in ("blake3", "sha256")),
+           "blake3_xor_hash", "blake3_hash64", "blake3_chain",
+           "sha256_xor_hash", "sha256_hash64", "sha256_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches per source since the last reset_launches().
-launches = {name: 0 for name in SOURCES}
+# Kernel launches per kernel since the last reset_launches().
+launches = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
@@ -61,6 +68,11 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def library(name: str) -> pathlib.Path:
+    """The shared library of source ``name``, built or not."""
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
 def build() -> dict[str, str]:
     """Compile every source not built yet and load all libraries.
 
@@ -73,7 +85,7 @@ def build() -> dict[str, str]:
         for name in SOURCES:
             if name in _libs:
                 continue
-            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            so = library(name)
             if not so.exists():
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -93,7 +105,7 @@ def build() -> dict[str, str]:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
         for name in SOURCES:
             if name not in _libs:
-                so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+                so = library(name)
                 _libs[name] = ctypes.CDLL(str(so))
                 log = so.with_suffix(".log")
                 _logs[name] = log.read_text() if log.exists() else ""
@@ -110,15 +122,16 @@ def function(source: str, symbol: str, argtypes):
     return fn
 
 
-def launch(source: str, fn, *args, device: torch.device) -> None:
+def launch(source: str, fn, *args, device: torch.device,
+           kernel: str | None = None) -> None:
     """Call a C entry point on ``device``'s current stream, raise if the
-    launch failed, and count it."""
+    launch failed, and count it under ``kernel`` (default: the source)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    launches[source] += 1
+    launches[kernel or source] += 1
 
 
 def check(t: torch.Tensor, name: str, device: torch.device,

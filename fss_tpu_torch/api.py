@@ -1,7 +1,8 @@
-"""High-level DPF, DCF and Half-Tree DPF API on PyTorch tensors.
+"""High-level DPF, DCF, Half-Tree DPF and VDPF API on PyTorch tensors.
 
-Counterpart of ``fss_tpu.api`` for the DPF, DCF and Half-Tree DPF schemes
-(``Dpf``, ``PackedDpfKeys``, ``Dcf``, ``HalfTreeDpf``, ``DEFAULT_NONCE``).
+Counterpart of ``fss_tpu.api`` for the DPF, DCF, Half-Tree DPF and
+verifiable DPF schemes (``Dpf``, ``PackedDpfKeys``, ``Dcf``,
+``HalfTreeDpf``, ``Vdpf``, ``DEFAULT_NONCE``, ``DEFAULT_HASH_IV``).
 Entry points run on the card unless the caller asks for the CPU:
 ``device="cuda"`` is the default, and inputs given as ints, lists, numpy
 arrays or tensors are moved to the scheme's ``device``. On a CUDA device
@@ -23,10 +24,15 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.ops import dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda
+from fss_tpu_torch.hash import Blake3
+from fss_tpu_torch.ops import (dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda,
+                               vdpf_cuda)
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes import vdpf as _vdpf
 
 DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
+DEFAULT_HASH_IV = (0x11111111, 0x22222222, 0x33333333, 0x44444444,
+                   0x55555555, 0x66666666, 0x77777777, 0x88888888)
 
 
 class PackedDpfKeys(typing.NamedTuple):
@@ -247,3 +253,125 @@ class HalfTreeDpf(_TreeScheme):
                                          int(party), self.hash_key,
                                          self._blocks(s0), self._blocks(cws),
                                          self._blocks(ocw))
+
+
+class Vdpf(_TreeScheme):
+    """Verifiable DPF with the ChaCha PRG (mul=2) and a keyed hash.
+
+    Keys: (cws (in_bits, 8), cs (4, 4), ocw (4,)) int32, the reference's
+    layout. ``gen`` returns the reference's ``fail`` flag (the parties'
+    final control bits equal), and ``gen_retry`` and ``gen_batch`` draw
+    new seeds until no key fails; as the level loop keeps t0 ^ t1 = 1 on
+    the path to alpha, honest seeds never fail. Eval returns the
+    share and the corrected per-point hash pi~; ``prove`` folds pi~s into
+    one proof; ``verify`` compares two proofs.
+    """
+
+    MUL = 2
+
+    def __init__(self, in_bits: int, group=None, prg=None, hash_iv=None,
+                 hashes=None, device="cuda"):
+        """``hashes``: ``hash.Blake3`` or ``hash.Sha256`` (H and H' of the
+        scheme); by default Blake3 keyed with ``hash_iv`` (or
+        DEFAULT_HASH_IV). On the CPU any object with the same
+        ``xor_hash``/``hash64`` methods on int32 tensors also works."""
+        super().__init__(in_bits, group, prg, device)
+        if hashes is None:
+            hashes = Blake3(DEFAULT_HASH_IV if hash_iv is None else hash_iv)
+        vdpf_cuda.hash_kind(hashes, self.device)  # others: the CPU only
+        self.hashes = hashes
+
+    def _gen_keys(self, s0s, alphas, betas):
+        return vdpf_cuda.gen_batch(self.prg.nonce, self.hashes, self.group,
+                                   self.in_bits, s0s, alphas, betas,
+                                   rounds=self.prg.rounds)
+
+    def gen(self, s0s, alpha, beta):
+        """One key: s0s [2, 4], alpha an int (or lanes), beta [4]. Returns
+        (cws [in_bits, 8], cs [4, 4], ocw [4], fail): where fail is 1 the
+        caller must draw new seeds."""
+        return tuple(x[0] for x in self._gen_keys(*self._one(s0s, alpha,
+                                                             beta)))
+
+    def gen_retry(self, rng, alpha, beta, max_tries: int = 64):
+        """Draw seeds [2, 4] from the numpy Generator ``rng`` and run Gen
+        until it succeeds. Returns (s0s, cws, cs, ocw)."""
+        for _ in range(max_tries):
+            s0s = self._blocks(rng.integers(0, 2**32, size=(2, 4)))
+            cws, cs, ocw, fail = self.gen(s0s, alpha, beta)
+            if not int(fail):
+                return s0s, cws, cs, ocw
+        raise RuntimeError("vdpf gen retry budget exhausted")
+
+    def gen_batch(self, rng, alphas, betas, max_rounds: int = 64):
+        """Batched Gen with per-key retry: alphas [B] (or [B, 4] lanes, or
+        a list of ints), betas [B, 4]; seeds drawn from the numpy
+        Generator ``rng``.
+
+        The JAX package's loop exactly, so the same ``rng`` gives the
+        same bytes: Gen of the whole batch, then each round draws fresh
+        seeds for the whole batch, runs Gen on all of it, and keeps the
+        new keys of the lanes that failed before and succeed now. The
+        draws stay on the host and the seeds move to the card each round;
+        the scatter and the fail mask stay on the card, with one host
+        sync a round. Returns (s0s [B, 2, 4], cws [B, in_bits, 8], cs
+        [B, 4, 4], ocw [B, 4]).
+        """
+        a, b = self._inputs(alphas), self._blocks(betas)
+        size = (a.shape[0], 2, 4)
+        s0s = self._blocks(rng.integers(0, 2**32, size=size))
+        cws, cs, ocw, fail = self._gen_keys(s0s, a, b)
+        fail = fail.bool()
+        for _ in range(max_rounds):
+            if not bool(fail.any()):
+                return s0s, cws, cs, ocw
+            new = self._blocks(rng.integers(0, 2**32, size=size))
+            ncws, ncs, nocw, nfail = self._gen_keys(new, a, b)
+            take = fail & ~nfail.bool()
+            s0s = torch.where(take[:, None, None], new, s0s)
+            cws = torch.where(take[:, None, None], ncws, cws)
+            cs = torch.where(take[:, None, None], ncs, cs)
+            ocw = torch.where(take[:, None], nocw, ocw)
+            fail &= ~take
+        raise RuntimeError("vdpf gen_batch retry budget exhausted")
+
+    def eval(self, party: int, s0, cws, cs, ocw, xs):
+        """Point evaluation. s0 [B, 4] or [4]; cws [B, in_bits, 8] or one
+        key [in_bits, 8]; cs [B, 4, 4] or [4, 4]; ocw [B, 4] or [4]; xs
+        ints, an int array, or [B, 4] lanes. Returns (ys [B, 4], pi_tildes
+        [B, 4, 4]), or ([4], [4, 4]) for a single int x."""
+        ys, pi = vdpf_cuda.eval_points(
+            self.prg.nonce, self.hashes, self.group, self.in_bits,
+            int(party), self._blocks(s0), self._blocks(cws),
+            self._blocks(cs), self._blocks(ocw), self._inputs(xs),
+            rounds=self.prg.rounds)
+        if isinstance(xs, (int, np.integer)):
+            return ys[0], pi[0]
+        return ys, pi
+
+    def prove(self, pi_tildes, cs) -> torch.Tensor:
+        """The reference's flat fold of pi_tildes [N, 4, 4] from cs
+        [4, 4]: [4, 4]."""
+        return vdpf_cuda.prove(self.hashes, self._blocks(pi_tildes),
+                               self._blocks(cs))
+
+    @staticmethod
+    def verify(pi0, pi1) -> bool:
+        """64-byte proof equality."""
+        return _vdpf.verify(blk.words(pi0).cpu(), blk.words(pi1).cpu())
+
+    def eval_all(self, party: int, s0, cws, cs, ocw,
+                 fold: str = "reference"):
+        """Full-domain evaluation of one key and its proof: (ys
+        [2^in_bits, 4], pi [4, 4]). ``fold``: "reference" (the reference's
+        flat chain, 2^n dependent hashes in one thread), "tree" (a Merkle
+        fold, one batched H' a level) or "chunked" (chains of 256, then a
+        chain of their proofs). The folds give different proofs: both
+        parties must pick the same one."""
+        if fold not in _vdpf.FOLDS:
+            raise ValueError(f"fold must be one of {_vdpf.FOLDS}, got "
+                             f"{fold!r}")
+        return eval_all_cuda.vdpf_eval_all(
+            self.prg, self.hashes, self.group, self.in_bits, int(party),
+            self._blocks(s0), self._blocks(cws), self._blocks(cs),
+            self._blocks(ocw), fold)

@@ -46,6 +46,17 @@ def words(vals, device=None) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def key_words(vals, count: int, name: str = "key") -> tuple:
+    """A hash key or IV of ``count`` 32-bit words, given as a sequence, an
+    array or a tensor of either package -> ``count`` ints in [0, 2^32)."""
+    if isinstance(vals, torch.Tensor):
+        vals = vals.detach().cpu().tolist()
+    out = tuple(int(w) & MASK32 for w in np.asarray(vals).ravel())
+    if len(out) != count:
+        raise ValueError(f"{name} must be {count} words, got {len(out)}")
+    return out
+
+
 def block(vals, device=None) -> torch.Tensor:
     """Build a block (or batch of blocks) from a [..., 4] int-like array."""
     return words(vals, device)

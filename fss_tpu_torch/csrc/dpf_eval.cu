@@ -2,9 +2,9 @@
 // in registers.
 //
 // Replaces fss_tpu/ops/dpf_pallas.py:eval_packed (_make_eval_kernel ->
-// walk). Per level: ChaCha mul=2 of the seed, the control bits taken from
-// the LSB of word 3 of each child and cleared, the level's correction word
-// XORed in under the mask (0 - t), and the child chosen by bit
+// walk). The walk itself is fss::dpf_walk (dpf_walk.cuh), shared with the
+// fused VDPF eval kernel: per level a ChaCha mul=2 block, the control bits,
+// the correction word under the mask (0 - t) and the child chosen by bit
 // (in_bits-1-i) of x, read from lane (pos >> 5) so domains of 33..128 bits
 // take x as 4 lanes.
 //
@@ -21,7 +21,7 @@
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "dpf_walk.cuh"
 
 namespace {
 
@@ -39,30 +39,9 @@ __global__ void dpf_eval_kernel(const uint32_t* __restrict__ seeds,
   const uint32_t* sp = seeds + k * seed_ks;
   uint32_t s[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2),
                    __ldg(sp + 3) & ~1u};
-  uint32_t t = (uint32_t)party;
-  const uint32_t* key = cws + k * cw_ks;
-  const uint32_t* x = xs + k * x_ks;
-
-  for (int i = 0; i < in_bits; ++i) {
-    uint32_t l[4], r[4];
-    fss::chacha2(s, n0, n1, rounds, l, r);
-    const uint32_t* c = key + i * cw_ls;
-    const uint32_t tm = 0u - t;
-    const uint32_t c3 = __ldg(c + 3 * cw_ws);
-    const uint32_t m0 = __ldg(c) & tm;
-    const uint32_t m1 = __ldg(c + cw_ws) & tm;
-    const uint32_t m2 = __ldg(c + 2 * cw_ws) & tm;
-    const uint32_t m3 = c3 & ~1u & tm;
-    const uint32_t tl = (l[3] & 1u) ^ (t & c3 & 1u);
-    const uint32_t tr = (r[3] & 1u) ^ (t & __ldg(c + 4 * cw_ws) & 1u);
-    const int pos = in_bits - 1 - i;
-    const bool bit = (__ldg(x + (pos >> 5)) >> (pos & 31)) & 1u;
-    s[0] = (bit ? r[0] : l[0]) ^ m0;
-    s[1] = (bit ? r[1] : l[1]) ^ m1;
-    s[2] = (bit ? r[2] : l[2]) ^ m2;
-    s[3] = ((bit ? r[3] : l[3]) & ~1u) ^ m3;
-    t = bit ? tr : tl;
-  }
+  const uint32_t t = fss::dpf_walk(s, (uint32_t)party, cws + k * cw_ks,
+                                   cw_ls, cw_ws, xs + k * x_ks, in_bits, n0,
+                                   n1, rounds);
   so[k] = make_int4((int)s[0], (int)s[1], (int)s[2], (int)s[3]);
   t_out[k] = (int32_t)t;
 }

@@ -14,8 +14,9 @@
 // levels, ~3.2e10 ops (~0.96 ms at 128 lanes x 132 SMs x 1.98 GHz)
 // against ~0.4-0.6 GB (~0.15 ms at 3.35 TB/s). Both seeds and both
 // states stay in registers across levels. The cw is written either as wire rows
-// [B, n+1, 8] (two 16-byte stores per level, pad words and the output row
-// zeroed so the caller fills only the output cw) or as packed planes
+// [B, rows, 8] (two 16-byte stores per level, pad words and, with
+// rows = n+1, the output row zeroed so the caller fills only the output
+// cw; a VDPF key has rows = n and no output row) or as packed planes
 // [n, 5, B], where neighbouring threads write neighbouring words.
 
 #include <cuda_runtime.h>
@@ -27,7 +28,8 @@ namespace {
 __global__ void dpf_gen_kernel(const uint32_t* __restrict__ seeds,
                                const uint32_t* __restrict__ alphas,
                                int64_t a_ks, int32_t* __restrict__ cws,
-                               int wire, int4* __restrict__ s0_out,
+                               int wire, int rows,
+                               int4* __restrict__ s0_out,
                                int4* __restrict__ s1_out,
                                int32_t* __restrict__ t0_out,
                                int32_t* __restrict__ t1_out, int64_t batch,
@@ -42,8 +44,7 @@ __global__ void dpf_gen_kernel(const uint32_t* __restrict__ seeds,
                     __ldg(sp + 7) & ~1u};
   uint32_t t0 = 0u, t1 = 1u;
   const uint32_t* a = alphas + k * a_ks;
-  int4* row = wire ? reinterpret_cast<int4*>(cws + k * (in_bits + 1) * 8)
-                   : nullptr;
+  int4* row = wire ? reinterpret_cast<int4*>(cws + k * rows * 8) : nullptr;
 
   for (int i = 0; i < in_bits; ++i) {
     uint32_t l0[4], r0[4], l1[4], r1[4];
@@ -84,7 +85,7 @@ __global__ void dpf_gen_kernel(const uint32_t* __restrict__ seeds,
     t0 = (ab ? t0r : t0l) ^ (t0 & tcw);
     t1 = (ab ? t1r : t1l) ^ (t1 & tcw);
   }
-  if (wire) {  // the output-cw row, filled by the caller
+  if (wire && rows > in_bits) {  // the output-cw row, filled by the caller
     row[2 * in_bits] = make_int4(0, 0, 0, 0);
     row[2 * in_bits + 1] = make_int4(0, 0, 0, 0);
   }
@@ -98,10 +99,12 @@ __global__ void dpf_gen_kernel(const uint32_t* __restrict__ seeds,
 
 // seeds: [B, 2, 4]; alphas: lanes of key k at alphas[k * a_ks] (a_ks = 1
 // for [B] with in_bits <= 32, 4 for [B, 4]).
-// cws: wire != 0 -> [B, in_bits+1, 8]; wire == 0 -> planes [in_bits, 5, B].
+// cws: wire != 0 -> [B, rows, 8] with rows in_bits+1 (DPF) or in_bits
+// (VDPF); wire == 0 -> planes [in_bits, 5, B].
 // s0_out, s1_out: [B, 4] final seeds; t0_out, t1_out: [B] final t bits.
 extern "C" int fss_dpf_gen(const void* seeds, const void* alphas,
-                           int64_t a_ks, void* cws, int wire, void* s0_out,
+                           int64_t a_ks, void* cws, int wire, int rows,
+                           void* s0_out,
                            void* s1_out, void* t0_out, void* t1_out,
                            int64_t batch, int in_bits, uint32_t n0,
                            uint32_t n1, int rounds, void* stream) {
@@ -110,7 +113,7 @@ extern "C" int fss_dpf_gen(const void* seeds, const void* alphas,
   const int64_t blocks = (batch + threads - 1) / threads;
   dpf_gen_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)seeds, (const uint32_t*)alphas, a_ks, (int32_t*)cws,
-      wire, (int4*)s0_out, (int4*)s1_out, (int32_t*)t0_out,
+      wire, rows, (int4*)s0_out, (int4*)s1_out, (int32_t*)t0_out,
       (int32_t*)t1_out, batch, in_bits, n0, n1, rounds);
   return (int)cudaGetLastError();
 }

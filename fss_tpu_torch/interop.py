@@ -4,9 +4,11 @@ The JAX package's state is numpy uint32 arrays (``np.asarray`` of its
 jax arrays); the port's is int32 tensors with the same bits. This module
 converts seeds [..., 2, 4], wire keys [B, in_bits+1, 8], the JAX
 package's packed keys (cw planes [in_bits, 5, T, 128] + ocw [B, 4]) and
-DPF, DCF and Half-Tree configurations described by plain values, in both
-directions. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
-arrays through :func:`to_torch` and :func:`to_numpy`. It
+DPF, DCF, Half-Tree and VDPF configurations described by plain values, in
+both directions. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
+arrays through :func:`to_torch` and :func:`to_numpy`, and VDPF keys (cws
+[B, in_bits, 8], cs [B, 4, 4], ocw [B, 4]) as three. Hash keys and IVs
+cross as plain ints. It
 imports nothing of the JAX package: a caller hands it arrays and values.
 """
 
@@ -17,7 +19,8 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, PackedDpfKeys
+from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, PackedDpfKeys, Vdpf
+from fss_tpu_torch.hash import Blake3, Sha256
 from fss_tpu_torch.ops.ht_cuda import hash_words
 from fss_tpu_torch.prg.chacha import ChaCha
 
@@ -103,3 +106,25 @@ def half_tree_from_config(cfg: dict, device="cuda") -> HalfTreeDpf:
     :func:`half_tree_config`."""
     return HalfTreeDpf(cfg["in_bits"], hash_key=cfg["hash_key"],
                        device=device, **_scheme_args(cfg, 1))
+
+
+def vdpf_config(in_bits: int, group, prg, hashes) -> dict:
+    """A VDPF configuration as plain values: :func:`dpf_config`'s fields
+    and the hash, read from a Blake3 (``iv``, 8 words) or Sha256 (``key``,
+    4 words) of either package."""
+    cfg = dpf_config(in_bits, group, prg)
+    if hasattr(hashes, "iv"):
+        return {**cfg, "hash": "blake3",
+                "hash_iv": list(blk.key_words(hashes.iv, 8, "iv"))}
+    if hasattr(hashes, "key"):
+        return {**cfg, "hash": "sha256",
+                "hash_key": list(blk.key_words(hashes.key, 4, "key"))}
+    raise TypeError(f"no BLAKE3 iv or SHA-256 key on {type(hashes).__name__}")
+
+
+def vdpf_from_config(cfg: dict, device="cuda") -> Vdpf:
+    """The port's Vdpf for a configuration made by :func:`vdpf_config`."""
+    hashes = (Blake3(cfg["hash_iv"]) if cfg["hash"] == "blake3"
+              else Sha256(cfg["hash_key"]))
+    return Vdpf(cfg["in_bits"], hashes=hashes, device=device,
+                **_scheme_args(cfg, 2))

@@ -35,7 +35,7 @@ _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.INT, _build.INT, _build.U32, _build.U32,
               _build.INT, _build.P)
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.INT,
-             _build.P, _build.P, _build.P, _build.P, _build.I64,
+             _build.INT, _build.P, _build.P, _build.P, _build.P, _build.I64,
              _build.INT, _build.U32, _build.U32, _build.INT, _build.P)
 
 
@@ -179,21 +179,25 @@ def _check_gen(s0s, alphas, in_bits):
 
 
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, nonce,
-               rounds: int = 20, layout: str = "wire"):
+               rounds: int = 20, layout: str = "wire", ocw_row: bool = True):
     """All levels of BGI Gen for a batch of keys.
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
     in_bits > 32). Returns (cws, s0f [B, 4], s1f [B, 4], t0 [B], t1 [B]):
-    ``cws`` is wire rows [B, in_bits+1, 8] with the output-cw row zero
-    (``layout="wire"``) or planes [in_bits, 5, B] (``layout="packed"``).
+    ``cws`` is wire rows (``layout="wire"``) or planes [in_bits, 5, B]
+    (``layout="packed"``). Wire rows are [B, in_bits+1, 8] with the
+    output-cw row zero, or [B, in_bits, 8] without it (``ocw_row=False``,
+    the VDPF's keys).
     """
     if layout not in ("wire", "packed"):
         raise ValueError(f"layout must be 'wire' or 'packed', got {layout}")
     dev = _check_gen(s0s, alphas, in_bits)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, in_bits, nonce, rounds, layout)
+        return gen_packed_plain(s0s, alphas, in_bits, nonce, rounds, layout,
+                                ocw_row)
     B = s0s.shape[0]
-    shape = (B, in_bits + 1, 8) if layout == "wire" else (in_bits, 5, B)
+    rows = in_bits + int(ocw_row)
+    shape = (B, rows, 8) if layout == "wire" else (in_bits, 5, B)
     cws = torch.empty(shape, dtype=torch.int32, device=dev)
     s0f = torch.empty((B, 4), dtype=torch.int32, device=dev)
     s1f = torch.empty((B, 4), dtype=torch.int32, device=dev)
@@ -204,14 +208,14 @@ def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, nonce,
     _build.launch(
         "dpf_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
         4 if alphas.dim() == 2 else 1, cws.data_ptr(),
-        int(layout == "wire"), s0f.data_ptr(), s1f.data_ptr(),
+        int(layout == "wire"), rows, s0f.data_ptr(), s1f.data_ptr(),
         t0.data_ptr(), t1.data_ptr(), B, in_bits, *prg.nonce, prg.rounds,
         device=dev)
     return cws, s0f, s1f, t0, t1
 
 
 def gen_packed_plain(s0s, alphas, in_bits: int, nonce, rounds: int = 20,
-                     layout: str = "wire"):
+                     layout: str = "wire", ocw_row: bool = True):
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
     _check_gen(s0s, alphas, in_bits)
     a_bits = blk.input_bits_msb_first(_x_lanes(alphas), in_bits)
@@ -221,8 +225,9 @@ def gen_packed_plain(s0s, alphas, in_bits: int, nonce, rounds: int = 20,
     if layout == "packed":
         return planes, s0, s1, t0, t1
     B = s0s.shape[0]
-    return (wire_rows(in_bits, planes, torch.zeros(
-        (B, 4), dtype=torch.int32, device=s0s.device)), s0, s1, t0, t1)
+    cws = wire_rows(in_bits, planes, torch.zeros(
+        (B, 4), dtype=torch.int32, device=s0s.device))
+    return (cws if ocw_row else cws[:, :in_bits].contiguous()), s0, s1, t0, t1
 
 
 def output_cw(group, s0f, s1f, t1, betas) -> torch.Tensor:

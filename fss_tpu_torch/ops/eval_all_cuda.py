@@ -1,6 +1,7 @@
-"""DPF, DCF and Half-Tree full-domain evaluation (EvalAll) on the card:
-wrappers of the CUDA kernels ``csrc/dpf_eval_all.cu``,
-``csrc/dcf_eval_all.cu`` and ``csrc/ht_eval_all.cu``.
+"""DPF, DCF, Half-Tree and VDPF full-domain evaluation (EvalAll) on the
+card: wrappers of the CUDA kernels ``csrc/dpf_eval_all.cu``,
+``csrc/dcf_eval_all.cu`` and ``csrc/ht_eval_all.cu``; the VDPF expands its
+tree with the DPF's kernel and hashes and folds with the hash kernels.
 
 Counterpart of ``fss_tpu.ops.eval_all_pallas``; the kernels replace
 ``eval_all_pallas._expand_packed``, ``eval_all_pallas.dcf_eval_all`` and
@@ -34,12 +35,13 @@ import torch
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch.block import i32, u64
-from fss_tpu_torch.ops import dcf_cuda, ht_cuda
+from fss_tpu_torch.ops import dcf_cuda, ht_cuda, vdpf_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import _tree
 from fss_tpu_torch.schemes import dcf as _dcf
 from fss_tpu_torch.schemes import dpf as _dpf
 from fss_tpu_torch.schemes import half_tree_dpf as _ht
+from fss_tpu_torch.schemes import vdpf as _vdpf
 
 LEVELS_PER_LAUNCH = 3
 
@@ -302,3 +304,27 @@ def ht_eval_all(prg1, group, in_bits: int, party: int, hash_key,
     drive the kernel."""
     high, low = ht_expand_leaves(prg1, in_bits, party, hash_key, s0, cws)
     return _dpf.finalize_leaves(group, party, high, low, ocw)
+
+
+# ---------------------------------------------------------------------------
+# VDPF
+# ---------------------------------------------------------------------------
+
+def vdpf_eval_all(prg2, hashes, group, in_bits: int, party: int,
+                  s0: torch.Tensor, cws: torch.Tensor, cs: torch.Tensor,
+                  ocw: torch.Tensor, fold: str = "reference"):
+    """Full-domain VDPF evaluation of one key and its proof: (ys
+    [2^in_bits, 4] shares in x order, pi [4, 4]).
+
+    Counterpart of ``eval_all_pallas.vdpf_eval_all_chunked``: the DPF's
+    expansion kernel for every level (no threshold), the DPF's finalize,
+    pi~ of the whole domain through the XorHash kernel (x as lane 0), the
+    t ? cs : 0 correction in place, and ``fold``: "reference" (the flat
+    chain, one thread), "tree" (one H' launch a level) or "chunked". Both
+    parties must use the same fold. cws are VDPF rows [in_bits, 8].
+    """
+    s, t = expand_leaves(prg2, in_bits, party, s0, cws)
+    return _vdpf.leaf_outputs(
+        lambda a, b: vdpf_cuda.xor_hash(hashes, a, b),
+        lambda pts, c: vdpf_cuda.fold(hashes, pts, c, fold), group, party,
+        s, t, cs, ocw)

@@ -24,7 +24,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 # The AES cases wait for the AES-128-MMO PRG and its kernels (ROADMAP.md
-# queue A item 11 and queue B items 14-18).
+# queue A item 10 and queue B items 14-18).
 _DPF_CASES = [c for c in json.loads((VEC / "dpf.json").read_text())["cases"]
               if c["prg"] == "chacha"]
 _DCF_CASES = [c for c in json.loads((VEC / "dcf.json").read_text())["cases"]

@@ -44,7 +44,7 @@ GROUPS = {
     "uint127m": (128, (1 << 127) - 1),
 }
 
-# The AES case waits for the AES-128-MMO PRG (ROADMAP.md queue A item 11).
+# The AES case waits for the AES-128-MMO PRG (ROADMAP.md queue A item 10).
 _CASES = [c for c in json.loads((VEC / "half_tree.json").read_text())
           ["cases"] if c["prg"] == "chacha"]
 
