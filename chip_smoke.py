@@ -7,18 +7,23 @@ Phases, each printing one line (any failure exits non-zero):
 
   1. device: the card's name, power limit and clocks;
   2. build: nvcc builds every kernel from csrc/ (registers and spills;
-     the hash kernels' SASS instruction counts beside the model count of
-     their bounds, ``hash_alu``);
+     the hash and AES kernels' SASS instruction counts, ALU and LDS ones
+     apart, beside the model counts of their bounds, ``hash_alu`` and
+     ``AES_ALU``/``AES_LDS``);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, byte-exact (tolerance 0: integer crypto); the DCF kernels in
-     each of their five accumulator modes; the hash kernels also on the
+     card, byte-exact (tolerance 0: integer crypto), every tree kernel
+     with the ChaCha PRG and with AES-128-MMO (``SAMPLE``-size batches;
+     the DPF, DCF, Half-Tree and VDPF walks at 16 and 48 or 128 bits, the
+     EvalAll expansions at several domains); the DCF kernels in each of
+     their five accumulator modes; the hash kernels also on the
      reference's primitive vectors, and the flat proof chains on 4096
      points;
-  4. golden: the reference's ChaCha DPF, DCF, Half-Tree and VDPF vectors
-     through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
-     Vdpf("cuda"), the VDPF's reference-fold EvalAll proofs included;
+  4. golden: the reference's DPF, DCF, Half-Tree and VDPF vectors, ChaCha
+     and AES, through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
+     Vdpf("cuda"), the VDPF's pi~, proofs and reference-fold EvalAll
+     proofs included;
   5. main paths at full size, each with the launch counts zeroed just
-     before it and read just after:
+     before it and read just after; first with ChaCha:
      - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
        ChaCha mul=2), Eval of both parties, reconstruction of every key, a
        4096-key sample against the plain version; then EvalAll of one key
@@ -34,6 +39,10 @@ Phases, each printing one line (any failure exits non-zero):
        parties with half the x at alpha, every key reconstructed and its
        two pi~ equal, prove and verify over 4096 points of one key;
        EvalAll of one key at 20 and 24 bits with the tree fold;
+     then the JAX bench's AES block (bench.py:220-360) at the same sizes,
+     with AES-128-MMO keyed by bytes(range(16 i, 16 (i + 1))): the DPF
+     (mul=2), the DCF (mul=4, lt), the Half-Tree DPF (mul=1) and the VDPF
+     (mul=2) with SHA-256 keyed by the bench's key;
   6. timing: CUDA-event times of each kernel and of the entry points at
      the main-path shapes, beside the bound of the same work; each timed
      kernel is held against its plain version on the same inputs.
@@ -77,6 +86,11 @@ CHECK_VDPF_EVAL_ALL_BITS = (8, 16)
 VDPF_IV = (0x11111111, 0x22222222, 0x33333333, 0x44444444, 0x55555555,
            0x66666666, 0x77777777, 0x88888888)  # the JAX bench's
 VDPF_SHA_KEY = (0xA1B2C3D4, 0x11223344, 0x55667788, 0x99AABBCC)
+# The JAX bench's AES-128-MMO keys: the first 1, 2 or 4 of them.
+AES_KEYS = tuple(bytes(range(16 * i, 16 * (i + 1))) for i in range(4))
+AES_LOG2_KEYS = 20
+AES_EVAL_ALL_BITS = (20, 24)
+CHECK_AES_EVAL_ALL_BITS = (8, 16)
 # The kernels each VDPF main path must launch: the fused eval, the DPF Gen
 # levels, the DPF expansion of EvalAll, and the hash kernels (H' in the
 # tree fold, the one-thread chain in prove).
@@ -93,6 +107,22 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 LANES_PER_SM_CLOCK = 128
 CHACHA_OPS = 960  # 10 double rounds x 8 quarter-rounds x 12 ALU ops
 SASS_ALU = ("LOP3", "IADD3", "VIADD", "SHF", "PRMT", "IMAD", "LEA")
+# One AES-128-MMO block (csrc/aes.cuh): 160 Te0 and 16 S-box lookups, each
+# one shared-memory load (LDS, 32 a clock per SM with no bank conflict),
+# and the ALU work around them: a byte extraction a lookup (176 PRMT), a
+# rotation for 3 of each round's 4 (108 SHF), two 3-input XORs a word a
+# round to fold 4 lookups and the round key (72 LOP3), the last round's
+# 12 shifts and 8 LOP3s, and the byte swaps and seed XORs in and out (16).
+AES_LDS = 176
+AES_ALU = 176 + 108 + 72 + 20 + 16
+LDS_PER_SM_CLOCK = 32
+# The kernels line's rows that stand for a TPU kernel (PERF.md section 6);
+# the others replace XLA glue of the JAX package.
+TPU_ROWS = {name: f"B-{i}" for i, name in enumerate((
+    "dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
+    "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all", "blake3_xor_hash",
+    "blake3_hash64", "sha256_xor_hash", "vdpf_eval", "dpf_eval_aes",
+    "ht_eval_aes", "dcf_eval_aes", "dpf_gen_aes", "dcf_gen_aes"), 1)}
 
 
 # The hashes' ALU instructions a row, for the bounds. One count per sm_90
@@ -234,16 +264,21 @@ def same(a, b) -> bool:
 
 
 def kernel_name(mangled: str) -> str:
-    """A mangled entry function -> kernel<template args>. Each name in it
-    follows its length in digits, which may run on from the anonymous
-    namespace's hex digest, so every tail of a digit run is tried."""
+    """A mangled entry function -> kernel<template args>, the PRG type
+    argument as "chacha" or "aes". Each name in it follows its length in
+    digits, which may run on from the anonymous namespace's hex digest, so
+    every tail of a digit run is tried."""
     name = mangled
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             cand = mangled[run.end():run.end() + int(mangled[i:run.end()])]
             if cand.endswith("_kernel"):
                 name = cand
-    args = re.findall(r"L[ib](\d+)E", mangled)
+    prg = re.search(r"(9ChaChaPrg|6AesPrgILi\dEE)", mangled)
+    args = re.findall(r"L[ib](\d+)E", re.sub(r"AesPrgILi\dEE", "",
+                                              mangled))
+    if prg:
+        args.append("chacha" if prg.group(1).startswith("9") else "aes")
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -262,8 +297,9 @@ def ptxas_usage(text: str) -> dict:
 
 def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path) -> dict:
     """``cuobjdump -sass`` of a library -> {kernel: [instructions, ALU
-    instructions (SASS_ALU)]}: a thread's count for a kernel with no loop,
-    a row's (the loop body, plus a little) for the chains."""
+    instructions (SASS_ALU), shared-memory loads (LDS)]}: a thread's count
+    for a kernel with no loop, a row's (the loop body, plus a little) for
+    the chains, a level's (plus a little) for the walks."""
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True,
                           timeout=300).stdout
@@ -273,7 +309,8 @@ def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path) -> dict:
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", chunk)
             if op != "NOP"]
         usage[kernel_name(chunk.split(None, 1)[0])] = [
-            len(ops), sum(op in SASS_ALU for op in ops)]
+            len(ops), sum(op in SASS_ALU for op in ops),
+            sum(op == "LDS" for op in ops)]
     return usage
 
 
@@ -289,6 +326,7 @@ def main() -> int:
     from fss_tpu_torch.ops import (blake3_cuda, dcf_cuda, dpf_cuda,
                                    eval_all_cuda, ht_cuda, sha256_cuda,
                                    vdpf_cuda)
+    from fss_tpu_torch.prg.aes import AesMmo
     from fss_tpu_torch.prg.chacha import ChaCha
     from fss_tpu_torch.schemes import dcf as plain_dcf
     from fss_tpu_torch.schemes import dpf as plain_dpf
@@ -297,6 +335,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(42)
+    CH = {m: ChaCha(m, NONCE) for m in (1, 2, 4)}
+    AES = {m: AesMmo(m, AES_KEYS[:m]) for m in (1, 2, 4)}
 
     def words(shape, bits=32):
         return blk.words(rng.integers(0, 2**bits, size=shape,
@@ -320,11 +360,16 @@ def main() -> int:
     max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_ops_per_s = sms * LANES_PER_SM_CLOCK * max_mhz * 1e6
+    lds_per_s = sms * LDS_PER_SM_CLOCK * max_mhz * 1e6
     log("device", kind=kind, nvidia_smi=smi, sms=sms, max_sm_mhz=max_mhz,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    def bound(ops: float, nbytes: float):
-        t_ops, t_bytes = ops / int_ops_per_s, nbytes / HBM_BYTES_PER_S
+    def bound(ops: float, nbytes: float, lds: float = 0):
+        """The least time (ms) for ``ops`` 32-bit ALU instructions, ``lds``
+        shared-memory loads and ``nbytes`` of device memory, and what sets
+        it: "operations" (ALU or LDS issue) or "bytes"."""
+        t_ops = max(ops / int_ops_per_s, lds / lds_per_s)
+        t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
@@ -335,11 +380,13 @@ def main() -> int:
     usage = {name: ptxas_usage(text) for name, text in reports.items()}
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     sass = {name: sass_usage(cuobjdump, _build.library(name))
-            for name in ("blake3", "sha256", "vdpf_eval")}
+            for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
+                         "dcf_eval", "ht_eval")}
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
                              for h in ("blake3", "sha256")
-                             for u in ("xor_hash", "hash64")})
+                             for u in ("xor_hash", "hash64")},
+        aes_block={"alu": AES_ALU, "lds": AES_LDS})
 
     # 3. kernels vs plain versions ----------------------------------------
     checks = []
@@ -357,148 +404,222 @@ def main() -> int:
     def kernel_inputs(lanes, n):
         return lanes if n > 32 else lanes[:, 0].contiguous()
 
-    for n in (16, 128):
-        s0s, betas = words((B, 2, 4)), words((B, 4))
-        alphas = domain(words((B, 4)), n)
-        xs = alphas.clone()
-        xs[1::2, 0] ^= 1
-        xs = kernel_inputs(xs, n)
-        wire = dpf_cuda.gen_batch(NONCE, groups.Uint(32), n, s0s,
-                                  kernel_inputs(alphas, n), betas)
-        cws_p, _ = dpf_cuda.pack_keys(wire, n)
-        cases = {
-            "wire": (s0s[:, 0].contiguous(), wire, False),
-            "packed": (s0s[:, 1].contiguous(), cws_p, True),
-            "broadcast": (s0s[0, 0].contiguous(), wire[0].contiguous(),
-                          False),
-        }
-        for label, (s0, cws, packed) in cases.items():
-            got = dpf_cuda.eval_packed(s0, cws, xs, n, 1, NONCE,
-                                       packed=packed)
-            want = dpf_cuda.eval_packed_plain(s0, cws, xs, n, 1, NONCE,
-                                              packed=packed)
-            checks.append((f"dpf_eval n={n} {label}", same(got, want)))
-    for n in (16, 48):
-        s0s = words((B, 2, 4))
-        alphas = kernel_inputs(domain(words((B, 4)), n), n)
-        for layout in ("wire", "packed"):
-            got = dpf_cuda.gen_packed(s0s, alphas, n, NONCE, layout=layout)
-            want = dpf_cuda.gen_packed_plain(s0s, alphas, n, NONCE,
-                                             layout=layout)
-            checks.append((f"dpf_gen n={n} {layout}", same(got, want)))
-    prg = ChaCha(2, NONCE)
-    for n in CHECK_EVAL_ALL_BITS:
-        g = groups.Uint(128, 1 << 127)
-        s0s, beta = words((1, 2, 4)), words((1, 4))
-        cws = plain_dpf.gen(prg, g, n, s0s,
-                            blk.pack_inputs([int(rng.integers(0, 2**n))], n,
-                                            dev), beta)[0]
-        for party in (0, 1):
-            got = eval_all_cuda.eval_all(prg, g, n, party, s0s[0, party], cws)
-            want = plain_dpf.eval_all(prg, g, n, party, s0s[0, party], cws)
-            checks.append((f"dpf_eval_all n={n} party={party}",
-                           same(got, want)))
-
     # One group per accumulator mode of the DCF kernels.
     dcf_groups = {"xor": groups.Bytes(), "wrap": groups.Uint(32),
                   "mod64": groups.Uint(64, (1 << 61) - 1),
                   "mod128": groups.Uint(128, 1 << 127),
                   "mod128np": groups.Uint(128, (1 << 127) - 1)}
-    for mode, g in dcf_groups.items():
-        vmask = dcf_cuda.value_mask(g)
-        for n in (16, 128):
+    hash_key = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
+    hk = blk.words(list(hash_key), dev)
+    iv = tuple(int(w) for w in rng.integers(0, 2**32, size=8))
+    skey = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
+    vdpf_hashes = {"blake3": Blake3(iv), "sha256": Sha256(skey)}
+    vg = groups.Uint(32)
+
+    def tree_checks(P, tag, wide, ea_bits, ht_ea_bits, vdpf_ea_bits):
+        """Every tree kernel with the PRGs ``P`` ({mul: PRG}) against its
+        plain version: walks at 16 and ``wide`` bits, Gen at 16 and 48,
+        EvalAll at ``ea_bits``."""
+        for n in (16, wide):
             s0s, betas = words((B, 2, 4)), words((B, 4))
             alphas = domain(words((B, 4)), n)
             xs = alphas.clone()
             xs[1::2, 0] ^= 1
             xs = kernel_inputs(xs, n)
-            wire = dcf_cuda.gen_batch(NONCE, g, n, "lt", s0s,
+            wire = dpf_cuda.gen_batch(P[2], groups.Uint(32), n, s0s,
                                       kernel_inputs(alphas, n), betas)
+            cws_p, _ = dpf_cuda.pack_keys(wire, n)
+            cases = {
+                "wire": (s0s[:, 0].contiguous(), wire, False),
+                "packed": (s0s[:, 1].contiguous(), cws_p, True),
+                "broadcast": (s0s[0, 0].contiguous(), wire[0].contiguous(),
+                              False),
+            }
+            for label, (s0, cws, packed) in cases.items():
+                got = dpf_cuda.eval_packed(s0, cws, xs, n, 1, P[2],
+                                           packed=packed)
+                want = dpf_cuda.eval_packed_plain(s0, cws, xs, n, 1, P[2],
+                                                  packed=packed)
+                checks.append((f"{tag} dpf_eval n={n} {label}",
+                               same(got, want)))
+        for n in (16, 48):
+            s0s = words((B, 2, 4))
+            alphas = kernel_inputs(domain(words((B, 4)), n), n)
+            for layout in ("wire", "packed"):
+                got = dpf_cuda.gen_packed(s0s, alphas, n, P[2],
+                                          layout=layout)
+                want = dpf_cuda.gen_packed_plain(s0s, alphas, n, P[2],
+                                                 layout=layout)
+                checks.append((f"{tag} dpf_gen n={n} {layout}",
+                               same(got, want)))
+        for n in ea_bits:
+            g = groups.Uint(128, 1 << 127)
+            s0s, beta = words((1, 2, 4)), words((1, 4))
+            cws = plain_dpf.gen(P[2], g, n, s0s, blk.pack_inputs(
+                [int(rng.integers(0, 2**n))], n, dev), beta)[0]
+            for party in (0, 1):
+                got = eval_all_cuda.eval_all(P[2], g, n, party,
+                                             s0s[0, party], cws)
+                want = plain_dpf.eval_all(P[2], g, n, party, s0s[0, party],
+                                          cws)
+                checks.append((f"{tag} dpf_eval_all n={n} party={party}",
+                               same(got, want)))
+
+        for mode, g in dcf_groups.items():
+            vmask = dcf_cuda.value_mask(g)
+            for n in (16, wide):
+                s0s, betas = words((B, 2, 4)), words((B, 4))
+                alphas = domain(words((B, 4)), n)
+                xs = alphas.clone()
+                xs[1::2, 0] ^= 1
+                xs = kernel_inputs(xs, n)
+                wire = dcf_cuda.gen_batch(P[4], g, n, "lt", s0s,
+                                          kernel_inputs(alphas, n), betas)
+                cases = {
+                    "wire": (s0s[:, 1].contiguous(), wire),
+                    "broadcast": (s0s[0, 1].contiguous(),
+                                  wire[0].contiguous()),
+                }
+                for label, (s0, cws) in cases.items():
+                    got = dcf_cuda.eval_packed(s0, cws, xs, n, 1, P[4], mode,
+                                               vmask)
+                    want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, 1,
+                                                      P[4], mode, vmask)
+                    checks.append((f"{tag} dcf_eval {mode} n={n} {label}",
+                                   same(got, want)))
+            for n in (16, 48):
+                s0s, betas = words((B, 2, 4)), words((B, 4))
+                alphas = kernel_inputs(domain(words((B, 4)), n), n)
+                for pred in ("lt", "gt"):
+                    got = dcf_cuda.gen_packed(s0s, alphas, betas, n, P[4],
+                                              pred, g)
+                    want = dcf_cuda.gen_packed_plain(s0s, alphas, betas, n,
+                                                     P[4], pred, g)
+                    checks.append((f"{tag} dcf_gen {mode} n={n} {pred}",
+                                   same(got, want)))
+        for mode in ("wrap", "xor", "mod128np"):
+            g = dcf_groups[mode]
+            for n in ea_bits:
+                s0s, beta = words((1, 2, 4)), words((1, 4))
+                cws = plain_dcf.gen(P[4], g, n, "lt", s0s, blk.pack_inputs(
+                    [int(rng.integers(0, 2**n))], n, dev), beta)[0]
+                for party in (0, 1):
+                    got = eval_all_cuda.dcf_eval_all(P[4], g, n, party,
+                                                     s0s[0, party], cws)
+                    want = plain_dcf.eval_all(P[4], g, n, party,
+                                              s0s[0, party], cws)
+                    checks.append((f"{tag} dcf_eval_all {mode} n={n} "
+                                   f"party={party}", same(got, want)))
+
+        for n in (16, wide):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            alphas = domain(words((B, 4)), n)
+            xs = alphas.clone()
+            xs[1::2, 0] ^= 1
+            xs = kernel_inputs(xs, n)
+            wire, _ = ht_cuda.gen_batch(P[1], groups.Uint(32), n, hash_key,
+                                        s0s, kernel_inputs(alphas, n), betas)
             cases = {
                 "wire": (s0s[:, 1].contiguous(), wire),
                 "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous()),
             }
             for label, (s0, cws) in cases.items():
-                got = dcf_cuda.eval_packed(s0, cws, xs, n, 1, NONCE, mode,
-                                           vmask)
-                want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, 1, NONCE,
-                                                  mode, vmask)
-                checks.append((f"dcf_eval {mode} n={n} {label}",
+                for party in (0, 1):
+                    got = ht_cuda.eval_packed(s0, cws, xs, n, party, P[1],
+                                              hash_key)
+                    want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party,
+                                                     P[1], hash_key)
+                    checks.append((f"{tag} ht_eval n={n} {label} "
+                                   f"party={party}", same(got, want)))
+        for n in (1, 16, wide):
+            s0s = words((B, 2, 4))
+            lanes = domain(words((B, 4)), n)
+            for width in ((1, 4) if n <= 32 else (4,)):
+                alphas = lanes if width == 4 else lanes[:, 0].contiguous()
+                got = ht_cuda.gen_packed(s0s, alphas, n, P[1], hash_key)
+                want = ht_cuda.gen_packed_plain(s0s, alphas, n, P[1],
+                                                hash_key)
+                checks.append((f"{tag} ht_gen n={n} alpha lanes={width}",
                                same(got, want)))
-        for n in (16, 48):
-            s0s, betas = words((B, 2, 4)), words((B, 4))
-            alphas = kernel_inputs(domain(words((B, 4)), n), n)
-            for pred in ("lt", "gt"):
-                got = dcf_cuda.gen_packed(s0s, alphas, betas, n, NONCE, pred,
-                                          g)
-                want = dcf_cuda.gen_packed_plain(s0s, alphas, betas, n,
-                                                 NONCE, pred, g)
-                checks.append((f"dcf_gen {mode} n={n} {pred}",
-                               same(got, want)))
-    prg4 = ChaCha(4, NONCE)
-    for mode in ("wrap", "xor", "mod128np"):
-        g = dcf_groups[mode]
-        for n in CHECK_EVAL_ALL_BITS:
+        g = groups.Uint(128, 1 << 127)
+        for n in ht_ea_bits:
             s0s, beta = words((1, 2, 4)), words((1, 4))
-            cws = plain_dcf.gen(prg4, g, n, "lt", s0s, blk.pack_inputs(
-                [int(rng.integers(0, 2**n))], n, dev), beta)[0]
+            cws, ocw = plain_ht.gen(P[1], g, n, hk, s0s, blk.pack_inputs(
+                [int(rng.integers(0, 2**n))], n, dev), beta)
             for party in (0, 1):
-                got = eval_all_cuda.dcf_eval_all(prg4, g, n, party,
-                                                 s0s[0, party], cws)
-                want = plain_dcf.eval_all(prg4, g, n, party, s0s[0, party],
-                                          cws)
-                checks.append((f"dcf_eval_all {mode} n={n} party={party}",
+                got = eval_all_cuda.ht_eval_all(P[1], g, n, party, hash_key,
+                                                s0s[0, party], cws[0],
+                                                ocw[0])
+                want = plain_ht.eval_all(P[1], g, n, party, hk,
+                                         s0s[0, party], cws[0], ocw[0])
+                checks.append((f"{tag} ht_eval_all n={n} party={party}",
                                same(got, want)))
 
-    hash_key = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
-    hk = blk.words(list(hash_key), dev)
-    for n in (16, 128):
-        s0s, betas = words((B, 2, 4)), words((B, 4))
-        alphas = domain(words((B, 4)), n)
-        xs = alphas.clone()
-        xs[1::2, 0] ^= 1
-        xs = kernel_inputs(xs, n)
-        wire, _ = ht_cuda.gen_batch(NONCE, groups.Uint(32), n, hash_key, s0s,
-                                    kernel_inputs(alphas, n), betas)
-        cases = {
-            "wire": (s0s[:, 1].contiguous(), wire),
-            "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous()),
-        }
-        for label, (s0, cws) in cases.items():
-            for party in (0, 1):
-                got = ht_cuda.eval_packed(s0, cws, xs, n, party, NONCE,
-                                          hash_key)
-                want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party,
-                                                 NONCE, hash_key)
-                checks.append((f"ht_eval n={n} {label} party={party}",
-                               same(got, want)))
-    for n in (1, 16, 128):
-        s0s = words((B, 2, 4))
-        lanes = domain(words((B, 4)), n)
-        for width in ((1, 4) if n <= 32 else (4,)):
-            alphas = lanes if width == 4 else lanes[:, 0].contiguous()
-            got = ht_cuda.gen_packed(s0s, alphas, n, NONCE, hash_key)
-            want = ht_cuda.gen_packed_plain(s0s, alphas, n, NONCE, hash_key)
-            checks.append((f"ht_gen n={n} alpha lanes={width}",
+        # The fused VDPF eval, Gen (DPF Gen levels into VDPF rows + H), and
+        # the DPF Gen's VDPF rows alone.
+        for n in (16, wide):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            lanes = domain(words((B, 4)), n)
+            xs = lanes.clone()
+            xs[1::2, 0] ^= 1
+            xs = kernel_inputs(xs, n)
+            alphas = kernel_inputs(lanes, n)
+            got = dpf_cuda.gen_packed(s0s, alphas, n, P[2], ocw_row=False)
+            want = dpf_cuda.gen_packed_plain(s0s, alphas, n, P[2],
+                                             ocw_row=False)
+            checks.append((f"{tag} dpf_gen n={n} vdpf rows",
                            same(got, want)))
-    prg1 = ChaCha(1, NONCE)
-    g = groups.Uint(128, 1 << 127)
-    for n in CHECK_HT_EVAL_ALL_BITS:
-        s0s, beta = words((1, 2, 4)), words((1, 4))
-        cws, ocw = plain_ht.gen(prg1, g, n, hk, s0s, blk.pack_inputs(
-            [int(rng.integers(0, 2**n))], n, dev), beta)
-        for party in (0, 1):
-            got = eval_all_cuda.ht_eval_all(prg1, g, n, party, hash_key,
-                                            s0s[0, party], cws[0], ocw[0])
-            want = plain_ht.eval_all(prg1, g, n, party, hk, s0s[0, party],
-                                     cws[0], ocw[0])
-            checks.append((f"ht_eval_all n={n} party={party}",
-                           same(got, want)))
+            for name, hashes in vdpf_hashes.items():
+                keys = vdpf_cuda.gen_batch(P[2], hashes, vg, n, s0s, alphas,
+                                           betas)
+                checks.append((f"{tag} vdpf gen {name} n={n}", same(
+                    keys, plain_vdpf.gen(P[2], plain_xor(hashes), vg, n, s0s,
+                                         lanes, betas))))
+                cws = keys[0]
+                for party in (0, 1):
+                    cases = {
+                        "wire": (s0s[:, party].contiguous(), cws),
+                        "broadcast": (s0s[0, party].contiguous(),
+                                      cws[0].contiguous()),
+                    }
+                    for label, (s0, k) in cases.items():
+                        got = vdpf_cuda.eval_packed(s0, k, xs, n, party,
+                                                    P[2], hashes)
+                        want = vdpf_cuda.eval_packed_plain(s0, k, xs, n,
+                                                           party, P[2],
+                                                           hashes)
+                        checks.append((f"{tag} vdpf_eval {name} n={n} "
+                                       f"{label} party={party}",
+                                       same(got, want)))
+        # VDPF EvalAll: the tree fold for both hashes; the chunked and
+        # reference folds for BLAKE3 at 8 bits (their plain versions chain
+        # one row at a time through the plain hash).
+        for n in vdpf_ea_bits:
+            for name, hashes in vdpf_hashes.items():
+                s0s, beta = words((1, 2, 4)), words((1, 4))
+                key = [t[0] for t in vdpf_cuda.gen_batch(
+                    P[2], hashes, vg, n, s0s, blk.pack_inputs(
+                        [int(rng.integers(0, 2**n))], n, dev), beta)][:3]
+                folds = ("tree",) + (("chunked", "reference")
+                                     if n <= 8 and name == "blake3" else ())
+                for fold in folds:
+                    for party in (0, 1):
+                        got = eval_all_cuda.vdpf_eval_all(
+                            P[2], hashes, vg, n, party, s0s[0, party], *key,
+                            fold)
+                        want = plain_vdpf.eval_all(
+                            P[2], plain_xor(hashes), plain_h64(hashes), vg,
+                            n, party, s0s[0, party], *key, fold)
+                        checks.append((f"{tag} vdpf_eval_all {name} n={n} "
+                                       f"{fold} party={party}",
+                                       same(got, want)))
+
+    tree_checks(CH, "chacha", 128, CHECK_EVAL_ALL_BITS, CHECK_HT_EVAL_ALL_BITS,
+                CHECK_VDPF_EVAL_ALL_BITS)
+    tree_checks(AES, "aes", 48, CHECK_AES_EVAL_ALL_BITS,
+                CHECK_AES_EVAL_ALL_BITS, CHECK_AES_EVAL_ALL_BITS)
     # The hash kernels on random rows, on the reference's primitive
     # vectors, and the one-thread chains on CHAIN_ROWS points.
-    iv = tuple(int(w) for w in rng.integers(0, 2**32, size=8))
-    skey = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
-    vdpf_hashes = {"blake3": Blake3(iv), "sha256": Sha256(skey)}
     a_rows, b_rows, msgs = words((B, 4)), words((B, 4)), words((B, 4, 4))
     pts, cs0 = words((CHAIN_ROWS, 4, 4)), words((4, 4))
     prims = json.loads((GOLDEN / "primitives.json").read_text())
@@ -524,65 +645,11 @@ def main() -> int:
             checks.append((f"{name} primitive {i} hash64",
                            raw(got) == bytes.fromhex(e["hash"])
                            and same(got, vdpf_cuda.hash64_plain(h, m))))
-
-    # The fused VDPF eval, Gen (DPF Gen levels into VDPF rows + H), and
-    # the DPF Gen's VDPF rows alone.
-    vg = groups.Uint(32)
-    prg2 = ChaCha(2, NONCE)
-    for n in (16, 128):
-        s0s, betas = words((B, 2, 4)), words((B, 4))
-        lanes = domain(words((B, 4)), n)
-        xs = lanes.clone()
-        xs[1::2, 0] ^= 1
-        xs = kernel_inputs(xs, n)
-        alphas = kernel_inputs(lanes, n)
-        got = dpf_cuda.gen_packed(s0s, alphas, n, NONCE, ocw_row=False)
-        want = dpf_cuda.gen_packed_plain(s0s, alphas, n, NONCE,
-                                         ocw_row=False)
-        checks.append((f"dpf_gen n={n} vdpf rows", same(got, want)))
-        for name, hashes in vdpf_hashes.items():
-            keys = vdpf_cuda.gen_batch(NONCE, hashes, vg, n, s0s, alphas,
-                                       betas)
-            checks.append((f"vdpf gen {name} n={n}", same(keys, plain_vdpf.gen(
-                prg2, plain_xor(hashes), vg, n, s0s, lanes, betas))))
-            cws = keys[0]
-            for party in (0, 1):
-                cases = {
-                    "wire": (s0s[:, party].contiguous(), cws),
-                    "broadcast": (s0s[0, party].contiguous(),
-                                  cws[0].contiguous()),
-                }
-                for label, (s0, k) in cases.items():
-                    got = vdpf_cuda.eval_packed(s0, k, xs, n, party, NONCE,
-                                                hashes)
-                    want = vdpf_cuda.eval_packed_plain(s0, k, xs, n, party,
-                                                       NONCE, hashes)
-                    checks.append((f"vdpf_eval {name} n={n} {label} "
-                                   f"party={party}", same(got, want)))
-    # VDPF EvalAll: the tree fold for both hashes; the chunked and
-    # reference folds for BLAKE3 at 8 bits (their plain versions chain one
-    # row at a time through the plain hash).
-    for n in CHECK_VDPF_EVAL_ALL_BITS:
-        for name, hashes in vdpf_hashes.items():
-            s0s, beta = words((1, 2, 4)), words((1, 4))
-            key = [t[0] for t in vdpf_cuda.gen_batch(
-                NONCE, hashes, vg, n, s0s, blk.pack_inputs(
-                    [int(rng.integers(0, 2**n))], n, dev), beta)][:3]
-            folds = ("tree",) + (("chunked", "reference")
-                                 if n <= 8 and name == "blake3" else ())
-            for fold in folds:
-                for party in (0, 1):
-                    got = eval_all_cuda.vdpf_eval_all(
-                        prg2, hashes, vg, n, party, s0s[0, party], *key,
-                        fold)
-                    want = plain_vdpf.eval_all(
-                        prg2, plain_xor(hashes), plain_h64(hashes), vg, n,
-                        party, s0s[0, party], *key, fold)
-                    checks.append((f"vdpf_eval_all {name} n={n} {fold} "
-                                   f"party={party}", same(got, want)))
     torch.cuda.synchronize()
     bad = [name for name, ok in checks if not ok]
-    log("kernels", checked=len(checks), mismatches=bad)
+    log("kernels", checked=len(checks),
+        aes_checked=sum(name.startswith("aes ") for name, _ in checks),
+        mismatches=bad)
     if bad:
         return 1
 
@@ -592,17 +659,23 @@ def main() -> int:
             "uint127": groups.Uint(128, 1 << 127),
             "uint127m": groups.Uint(128, (1 << 127) - 1)}
 
+    def case_prg(case, mul):
+        if case["prg"] == "aes":
+            return AesMmo(mul, [bytes.fromhex(k)
+                                for k in case["aes_keys"][:mul]])
+        return ChaCha(mul, (case["nonce_lo"], case["nonce_hi"]))
+
     def golden_case(scheme, case, failures):
         n = case["in_bits"]
-        nonce = (case["nonce_lo"], case["nonce_hi"])
         if scheme == "dpf":
-            d = Dpf(n, gmap[case["group"]], ChaCha(2, nonce))
+            d = Dpf(n, gmap[case["group"]], case_prg(case, 2))
         elif scheme == "dcf":
-            d = Dcf(n, gmap[case["group"]], ChaCha(4, nonce), case["pred"])
+            d = Dcf(n, gmap[case["group"]], case_prg(case, 4), case["pred"])
         else:
-            d = HalfTreeDpf(n, gmap[case["group"]], ChaCha(1, nonce),
+            d = HalfTreeDpf(n, gmap[case["group"]], case_prg(case, 1),
                             hexw(case["hash_key"]))
-        tag = f"{scheme} {case['group']}-{n}-{case.get('pred', '')}"
+        tag = (f"{scheme} {case['prg']}-{case['group']}-{n}-"
+               f"{case.get('pred', '')}")
         s0s = np.stack([hexw(h) for h in case["s0s"]])
         key = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
         # A Half-Tree key is (cws, ocw); Eval and EvalAll take both.
@@ -633,10 +706,8 @@ def main() -> int:
         else:
             hashes = Blake3(np.concatenate([hexw(h)
                                             for h in case["blake3_iv"]]))
-        d = Vdpf(n, gmap[case["group"]],
-                 ChaCha(2, (case["nonce_lo"], case["nonce_hi"])),
-                 hashes=hashes)
-        tag = f"vdpf {case['hash']}-{case['group']}-{n}"
+        d = Vdpf(n, gmap[case["group"]], case_prg(case, 2), hashes=hashes)
+        tag = f"vdpf {case['prg']}-{case['hash']}-{case['group']}-{n}"
         s0s = np.stack([hexw(h) for h in case["s0s"]])
         cws, cs, ocw, fail = d.gen(s0s, int(case["alpha"], 0),
                                    hexw(case["beta"]))
@@ -668,210 +739,231 @@ def main() -> int:
 
     failures, counts = [], {}
     for scheme in ("dpf", "dcf", "half_tree", "vdpf"):
-        golden = [c for c in json.loads((GOLDEN / f"{scheme}.json")
-                                        .read_text())["cases"]
-                  if c["prg"] == "chacha"]
-        counts[scheme] = len(golden)
+        golden = json.loads((GOLDEN / f"{scheme}.json").read_text())["cases"]
         for case in golden:
+            key = f"{scheme} {case['prg']}"
+            counts[key] = counts.get(key, 0) + 1
             if scheme == "vdpf":
                 vdpf_golden_case(case, failures)
             else:
                 golden_case(scheme, case, failures)
-    log("golden", cases=counts, failures=failures)
-    if failures or counts != {"dpf": 6, "dcf": 6, "half_tree": 4,
-                              "vdpf": 4}:
+    log("golden", cases=counts, total=sum(counts.values()),
+        failures=failures)
+    if failures or counts != {"dpf chacha": 6, "dpf aes": 2,
+                              "dcf chacha": 6, "dcf aes": 1,
+                              "half_tree chacha": 4, "half_tree aes": 1,
+                              "vdpf chacha": 4, "vdpf aes": 1}:
         return 1
 
     # 5. main paths at full size ------------------------------------------
-    # 5a. DPF
-    nkeys = 1 << MAIN_LOG2_KEYS
-    g = groups.Uint(32)
-    d = Dpf(MAIN_BITS, g, ChaCha(2, NONCE))
-    s0s, betas = words((nkeys, 2, 4)), words((nkeys, 4))
-    alphas = words((nkeys,), MAIN_BITS)
-    xs = alphas.clone()
-    xs[1::2] ^= 1 + words((nkeys // 2,), MAIN_BITS - 1)  # != alpha
-    n_ea = max(EVAL_ALL_BITS)
-    ea_seeds, ea_beta = words((2, 4)), words((4,))
-    ea_alpha = int(rng.integers(0, 2**n_ea))
-    torch.cuda.synchronize()
+    def point_keys(nkeys):
+        """Alphas below 2^MAIN_BITS, and xs at alpha on even keys and
+        elsewhere on odd ones."""
+        alphas = words((nkeys,), MAIN_BITS)
+        xs = alphas.clone()
+        xs[1::2] ^= 1 + words((nkeys // 2,), MAIN_BITS - 1)  # != alpha
+        return alphas, xs
 
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    cws = d.gen_batch(s0s, alphas, betas)
-    y0 = d.eval(0, s0s[:, 0].contiguous(), cws, xs)
-    y1 = d.eval(1, s0s[:, 1].contiguous(), cws, xs)
-    rec = g.add(g.from_block(y0), g.from_block(y1))
-    ea_rec, ea_dpf, ea_key = {}, {}, {}
-    for n in EVAL_ALL_BITS:
-        ea_dpf[n] = Dpf(n, g, ChaCha(2, NONCE))
-        ea_key[n] = ea_dpf[n].gen(ea_seeds, ea_alpha % (1 << n), ea_beta)
-        e0 = ea_dpf[n].eval_all(0, ea_seeds[0], ea_key[n])
-        e1 = ea_dpf[n].eval_all(1, ea_seeds[1], ea_key[n])
-        ea_rec[n] = (g.add(g.from_block(e0), g.from_block(e1)),
-                     ea_alpha % (1 << n))
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {k: _build.launches[k] for k in DPF_SOURCES}
+    def point_ok(rec, betas, ea_rec, beta):
+        """Every key's sum is beta at alpha (even keys) and 0 elsewhere;
+        each EvalAll domain's sum is beta at alpha and 0 elsewhere."""
+        want = torch.zeros_like(rec)
+        want[0::2, 0] = betas[0::2, 0]
+        ea_ok = True
+        for n, (r, a) in ea_rec.items():
+            expect = torch.zeros_like(r)
+            expect[a, 0] = beta[0]
+            ea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
+        return torch.equal(rec, want), ea_ok
 
-    want = torch.zeros_like(rec)
-    want[0::2, 0] = betas[0::2, 0]
-    rec_ok = torch.equal(rec, want)
-    sample_ok = same(cws[:SAMPLE], plain_dpf.gen(
-        d.prg, g, MAIN_BITS, s0s[:SAMPLE],
-        blk.pack_inputs(alphas[:SAMPLE], MAIN_BITS), betas[:SAMPLE]))
-    sample_ok &= same(y1[:SAMPLE], plain_dpf.eval_points(
-        d.prg, g, MAIN_BITS, 1, s0s[:SAMPLE, 1], cws[:SAMPLE],
-        blk.pack_inputs(xs[:SAMPLE], MAIN_BITS)))
-    ea_ok = True
-    for n, (r, a) in ea_rec.items():
-        expect = torch.zeros_like(r)
-        expect[a, 0] = ea_beta[0]
-        ea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
-    log("main_path", scheme="dpf", keys=nkeys, in_bits=MAIN_BITS,
-        group=g.name, seconds=round(main_s, 3), reconstruct_ok=rec_ok,
-        sample_vs_plain_ok=sample_ok, eval_all_bits=list(EVAL_ALL_BITS),
-        eval_all_ok=ea_ok, launches=launches)
-    if not (rec_ok and sample_ok and ea_ok
-            and all(v > 0 for v in launches.values())):
-        return 1
+    def counts_of(names, sfx):
+        return {k + sfx: _build.launches[k + sfx] for k in names}
 
-    # 5b. DCF: x below alpha on even keys, at or above it on odd ones.
-    dkeys = 1 << DCF_MAIN_LOG2_KEYS
-    dg = groups.Uint(32)
-    dd = Dcf(MAIN_BITS, dg, ChaCha(4, NONCE), "lt")
-    top = 1 << MAIN_BITS
-    ds0s, dbetas = words((dkeys, 2, 4)), words((dkeys, 4))
-    dalphas = words((dkeys,), MAIN_BITS).to(torch.int64)
-    dalphas[0::2] |= 1  # > 0, so some x lies below
-    dalphas[4] = 0
-    r = words((dkeys,), MAIN_BITS).to(torch.int64)
-    dxs = torch.where(torch.arange(dkeys, device=dev) % 2 == 0,
-                      r % dalphas.clamp(min=1),
-                      dalphas + r % (top - dalphas))
-    # x = 0 below alpha; x = alpha; x = 2^n - 1; x = alpha = 0 (key 4);
-    # x = alpha = 2^n - 1.
-    dxs[0], dxs[1], dxs[3] = 0, dalphas[1], top - 1
-    dalphas[5] = dxs[5] = top - 1
-    below = dxs < dalphas
-    dalphas, dxs = dalphas.to(torch.int32), dxs.to(torch.int32)
-    dn_ea = max(DCF_EVAL_ALL_BITS)
-    dea_seeds, dea_beta = words((2, 4)), words((4,))
-    dea_alpha = int(rng.integers(1, 2**dn_ea))
-    torch.cuda.synchronize()
+    def dpf_path(prg2, sfx, log2_keys, ea_bits):
+        """5a. DPF: Gen of 2^log2_keys keys, Eval of both parties, the
+        reconstruction; EvalAll of one key at each of ``ea_bits``."""
+        nkeys = 1 << log2_keys
+        g = groups.Uint(32)
+        d = Dpf(MAIN_BITS, g, prg2)
+        s0s, betas = words((nkeys, 2, 4)), words((nkeys, 4))
+        alphas, xs = point_keys(nkeys)
+        n_ea = max(ea_bits)
+        ea_seeds, ea_beta = words((2, 4)), words((4,))
+        ea_alpha = int(rng.integers(0, 2**n_ea))
+        torch.cuda.synchronize()
 
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    dcws = dd.gen_batch(ds0s, dalphas, dbetas)
-    dy0 = dd.eval(0, ds0s[:, 0].contiguous(), dcws, dxs)
-    dy1 = dd.eval(1, ds0s[:, 1].contiguous(), dcws, dxs)
-    drec = dg.add(dg.from_block(dy0), dg.from_block(dy1))
-    dea_rec, dea_dcf, dea_key = {}, {}, {}
-    for n in DCF_EVAL_ALL_BITS:
-        a = dea_alpha % (1 << n)
-        dea_dcf[n] = Dcf(n, dg, ChaCha(4, NONCE), "lt")
-        dea_key[n] = dea_dcf[n].gen(dea_seeds, a, dea_beta)
-        e0 = dea_dcf[n].eval_all(0, dea_seeds[0], dea_key[n])
-        e1 = dea_dcf[n].eval_all(1, dea_seeds[1], dea_key[n])
-        dea_rec[n] = (dg.add(dg.from_block(e0), dg.from_block(e1)), a)
-    torch.cuda.synchronize()
-    dmain_s = time.perf_counter() - t0
-    dlaunches = {k: _build.launches[k] for k in DCF_SOURCES}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cws = d.gen_batch(s0s, alphas, betas)
+        y0 = d.eval(0, s0s[:, 0].contiguous(), cws, xs)
+        y1 = d.eval(1, s0s[:, 1].contiguous(), cws, xs)
+        rec = g.add(g.from_block(y0), g.from_block(y1))
+        ea_rec, ea_dpf, ea_key = {}, {}, {}
+        for n in ea_bits:
+            ea_dpf[n] = Dpf(n, g, prg2)
+            ea_key[n] = ea_dpf[n].gen(ea_seeds, ea_alpha % (1 << n), ea_beta)
+            e0 = ea_dpf[n].eval_all(0, ea_seeds[0], ea_key[n])
+            e1 = ea_dpf[n].eval_all(1, ea_seeds[1], ea_key[n])
+            ea_rec[n] = (g.add(g.from_block(e0), g.from_block(e1)),
+                         ea_alpha % (1 << n))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = counts_of(DPF_SOURCES, sfx)
 
-    want = torch.zeros_like(drec)
-    want[:, 0] = torch.where(below, dbetas[:, 0], 0)
-    drec_ok = torch.equal(drec, want)
-    dsample_ok = same(dcws[:SAMPLE], plain_dcf.gen(
-        dd.prg, dg, MAIN_BITS, "lt", ds0s[:SAMPLE],
-        blk.pack_inputs(dalphas[:SAMPLE], MAIN_BITS), dbetas[:SAMPLE]))
-    dsample_ok &= same(dy1[:SAMPLE], plain_dcf.eval_points(
-        dd.prg, dg, MAIN_BITS, 1, ds0s[:SAMPLE, 1], dcws[:SAMPLE],
-        blk.pack_inputs(dxs[:SAMPLE], MAIN_BITS)))
-    dea_ok = True
-    for n, (r, a) in dea_rec.items():
-        expect = torch.zeros_like(r)
-        expect[:a, 0] = dea_beta[0]
-        dea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
-    log("main_path", scheme="dcf", pred="lt", keys=dkeys, in_bits=MAIN_BITS,
-        group=dg.name, seconds=round(dmain_s, 3), reconstruct_ok=drec_ok,
-        x_below_alpha=int(below.sum()), sample_vs_plain_ok=dsample_ok,
-        eval_all_bits=list(DCF_EVAL_ALL_BITS), eval_all_ok=dea_ok,
-        launches=dlaunches)
-    if not (drec_ok and dsample_ok and dea_ok
-            and all(v > 0 for v in dlaunches.values())):
-        return 1
-    launches.update(dlaunches)
+        rec_ok, ea_ok = point_ok(rec, betas, ea_rec, ea_beta)
+        sample_ok = same(cws[:SAMPLE], plain_dpf.gen(
+            prg2, g, MAIN_BITS, s0s[:SAMPLE],
+            blk.pack_inputs(alphas[:SAMPLE], MAIN_BITS), betas[:SAMPLE]))
+        sample_ok &= same(y1[:SAMPLE], plain_dpf.eval_points(
+            prg2, g, MAIN_BITS, 1, s0s[:SAMPLE, 1], cws[:SAMPLE],
+            blk.pack_inputs(xs[:SAMPLE], MAIN_BITS)))
+        log("main_path", scheme="dpf", prg=type(prg2).__name__, keys=nkeys,
+            in_bits=MAIN_BITS, group=g.name, seconds=round(main_s, 3),
+            reconstruct_ok=rec_ok, sample_vs_plain_ok=sample_ok,
+            eval_all_bits=list(ea_bits), eval_all_ok=ea_ok,
+            launches=launches)
+        ok = (rec_ok and sample_ok and ea_ok
+              and all(v > 0 for v in launches.values()))
+        return ok, dict(d=d, g=g, nkeys=nkeys, s0s=s0s, alphas=alphas,
+                        betas=betas, cws=cws, xs=xs, n_ea=n_ea,
+                        ea_seeds=ea_seeds, ea=ea_dpf, ea_key=ea_key,
+                        launches=launches, main_s=main_s)
 
-    # 5c. Half-Tree: x at alpha on even keys, elsewhere on odd ones.
-    hkeys = 1 << HT_MAIN_LOG2_KEYS
-    hg = groups.Uint(32)
-    hd = HalfTreeDpf(MAIN_BITS, hg, ChaCha(1, NONCE), hash_key)
-    hs0s, hbetas = words((hkeys, 2, 4)), words((hkeys, 4))
-    halphas = words((hkeys,), MAIN_BITS)
-    hxs = halphas.clone()
-    hxs[1::2] ^= 1 + words((hkeys // 2,), MAIN_BITS - 1)  # != alpha
-    hn_ea = max(HT_EVAL_ALL_BITS)
-    hea_seeds, hea_beta = words((2, 4)), words((4,))
-    hea_alpha = int(rng.integers(0, 2**hn_ea))
-    torch.cuda.synchronize()
+    def dcf_path(prg4, sfx, log2_keys, ea_bits):
+        """5b. DCF (lt): x below alpha on even keys, at or above it on odd
+        ones; every key reconstructs to beta * (x < alpha)."""
+        dkeys = 1 << log2_keys
+        dg = groups.Uint(32)
+        dd = Dcf(MAIN_BITS, dg, prg4, "lt")
+        top = 1 << MAIN_BITS
+        ds0s, dbetas = words((dkeys, 2, 4)), words((dkeys, 4))
+        dalphas = words((dkeys,), MAIN_BITS).to(torch.int64)
+        dalphas[0::2] |= 1  # > 0, so some x lies below
+        dalphas[4] = 0
+        r = words((dkeys,), MAIN_BITS).to(torch.int64)
+        dxs = torch.where(torch.arange(dkeys, device=dev) % 2 == 0,
+                          r % dalphas.clamp(min=1),
+                          dalphas + r % (top - dalphas))
+        # x = 0 below alpha; x = alpha; x = 2^n - 1; x = alpha = 0 (key 4);
+        # x = alpha = 2^n - 1.
+        dxs[0], dxs[1], dxs[3] = 0, dalphas[1], top - 1
+        dalphas[5] = dxs[5] = top - 1
+        below = dxs < dalphas
+        dalphas, dxs = dalphas.to(torch.int32), dxs.to(torch.int32)
+        dn_ea = max(ea_bits)
+        dea_seeds, dea_beta = words((2, 4)), words((4,))
+        dea_alpha = int(rng.integers(1, 2**dn_ea))
+        torch.cuda.synchronize()
 
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    hcws, hocw = hd.gen_batch(hs0s, halphas, hbetas)
-    hy0 = hd.eval(0, hs0s[:, 0].contiguous(), hcws, hocw, hxs)
-    hy1 = hd.eval(1, hs0s[:, 1].contiguous(), hcws, hocw, hxs)
-    hrec = hg.add(hg.from_block(hy0), hg.from_block(hy1))
-    hea_rec, hea_ht, hea_key = {}, {}, {}
-    for n in HT_EVAL_ALL_BITS:
-        a = hea_alpha % (1 << n)
-        hea_ht[n] = HalfTreeDpf(n, hg, ChaCha(1, NONCE), hash_key)
-        hea_key[n] = hea_ht[n].gen(hea_seeds, a, hea_beta)
-        e0 = hea_ht[n].eval_all(0, hea_seeds[0], *hea_key[n])
-        e1 = hea_ht[n].eval_all(1, hea_seeds[1], *hea_key[n])
-        hea_rec[n] = (hg.add(hg.from_block(e0), hg.from_block(e1)), a)
-    torch.cuda.synchronize()
-    hmain_s = time.perf_counter() - t0
-    hlaunches = {k: _build.launches[k] for k in HT_SOURCES}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        dcws = dd.gen_batch(ds0s, dalphas, dbetas)
+        dy0 = dd.eval(0, ds0s[:, 0].contiguous(), dcws, dxs)
+        dy1 = dd.eval(1, ds0s[:, 1].contiguous(), dcws, dxs)
+        drec = dg.add(dg.from_block(dy0), dg.from_block(dy1))
+        dea_rec, dea_dcf, dea_key = {}, {}, {}
+        for n in ea_bits:
+            a = dea_alpha % (1 << n)
+            dea_dcf[n] = Dcf(n, dg, prg4, "lt")
+            dea_key[n] = dea_dcf[n].gen(dea_seeds, a, dea_beta)
+            e0 = dea_dcf[n].eval_all(0, dea_seeds[0], dea_key[n])
+            e1 = dea_dcf[n].eval_all(1, dea_seeds[1], dea_key[n])
+            dea_rec[n] = (dg.add(dg.from_block(e0), dg.from_block(e1)), a)
+        torch.cuda.synchronize()
+        dmain_s = time.perf_counter() - t0
+        dlaunches = counts_of(DCF_SOURCES, sfx)
 
-    want = torch.zeros_like(hrec)
-    want[0::2, 0] = hbetas[0::2, 0]
-    hrec_ok = torch.equal(hrec, want)
-    hsample_ok = same((hcws[:SAMPLE], hocw[:SAMPLE]), plain_ht.gen(
-        hd.prg, hg, MAIN_BITS, hk, hs0s[:SAMPLE],
-        blk.pack_inputs(halphas[:SAMPLE], MAIN_BITS), hbetas[:SAMPLE]))
-    hsample_ok &= same(hy1[:SAMPLE], plain_ht.eval_points(
-        hd.prg, hg, MAIN_BITS, 1, hk, hs0s[:SAMPLE, 1], hcws[:SAMPLE],
-        hocw[:SAMPLE], blk.pack_inputs(hxs[:SAMPLE], MAIN_BITS)))
-    hea_ok = True
-    for n, (r, a) in hea_rec.items():
-        expect = torch.zeros_like(r)
-        expect[a, 0] = hea_beta[0]
-        hea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
-    log("main_path", scheme="half_tree", keys=hkeys, in_bits=MAIN_BITS,
-        group=hg.name, seconds=round(hmain_s, 3), reconstruct_ok=hrec_ok,
-        sample_vs_plain_ok=hsample_ok, eval_all_bits=list(HT_EVAL_ALL_BITS),
-        eval_all_ok=hea_ok, launches=hlaunches)
-    if not (hrec_ok and hsample_ok and hea_ok
-            and all(v > 0 for v in hlaunches.values())):
-        return 1
-    launches.update(hlaunches)
+        want = torch.zeros_like(drec)
+        want[:, 0] = torch.where(below, dbetas[:, 0], 0)
+        drec_ok = torch.equal(drec, want)
+        dsample_ok = same(dcws[:SAMPLE], plain_dcf.gen(
+            prg4, dg, MAIN_BITS, "lt", ds0s[:SAMPLE],
+            blk.pack_inputs(dalphas[:SAMPLE], MAIN_BITS), dbetas[:SAMPLE]))
+        dsample_ok &= same(dy1[:SAMPLE], plain_dcf.eval_points(
+            prg4, dg, MAIN_BITS, 1, ds0s[:SAMPLE, 1], dcws[:SAMPLE],
+            blk.pack_inputs(dxs[:SAMPLE], MAIN_BITS)))
+        dea_ok = True
+        for n, (r, a) in dea_rec.items():
+            expect = torch.zeros_like(r)
+            expect[:a, 0] = dea_beta[0]
+            dea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
+        log("main_path", scheme="dcf", prg=type(prg4).__name__, pred="lt",
+            keys=dkeys, in_bits=MAIN_BITS, group=dg.name,
+            seconds=round(dmain_s, 3), reconstruct_ok=drec_ok,
+            x_below_alpha=int(below.sum()), sample_vs_plain_ok=dsample_ok,
+            eval_all_bits=list(ea_bits), eval_all_ok=dea_ok,
+            launches=dlaunches)
+        ok = (drec_ok and dsample_ok and dea_ok
+              and all(v > 0 for v in dlaunches.values()))
+        return ok, dict(d=dd, g=dg, nkeys=dkeys, s0s=ds0s, alphas=dalphas,
+                        betas=dbetas, cws=dcws, xs=dxs, n_ea=dn_ea,
+                        ea_seeds=dea_seeds, ea=dea_dcf, ea_key=dea_key,
+                        launches=dlaunches, main_s=dmain_s)
 
-    # 5d. VDPF keyed with BLAKE3, then with SHA-256: x at alpha on even
-    # keys, elsewhere on odd ones; one key proved over CHAIN_ROWS points.
-    vkeys = 1 << VDPF_MAIN_LOG2_KEYS
-    valphas = words((vkeys,), MAIN_BITS)
-    vbetas = words((vkeys, 4))
-    vxs = valphas.clone()
-    vxs[1::2] ^= 1 + words((vkeys // 2,), MAIN_BITS - 1)  # != alpha
-    pxs = words((CHAIN_ROWS,), MAIN_BITS)
-    vn_ea = max(VDPF_EVAL_ALL_BITS)
-    vea_alpha, vea_beta = int(rng.integers(0, 2**vn_ea)), words((4,))
-    vmain, vlaunches = {}, {}
-    for name, hashes in (("blake3", Blake3(VDPF_IV)),
-                         ("sha256", Sha256(VDPF_SHA_KEY))):
-        vd = Vdpf(MAIN_BITS, vg, ChaCha(2, NONCE), hashes=hashes)
-        vea_d = {n: Vdpf(n, vg, ChaCha(2, NONCE), hashes=hashes)
-                 for n in VDPF_EVAL_ALL_BITS}
+    def ht_path(prg1, sfx, log2_keys, ea_bits):
+        """5c. Half-Tree with the random CCR hash key: x at alpha on even
+        keys, elsewhere on odd ones."""
+        hkeys = 1 << log2_keys
+        hg = groups.Uint(32)
+        hd = HalfTreeDpf(MAIN_BITS, hg, prg1, hash_key)
+        hs0s, hbetas = words((hkeys, 2, 4)), words((hkeys, 4))
+        halphas, hxs = point_keys(hkeys)
+        hn_ea = max(ea_bits)
+        hea_seeds, hea_beta = words((2, 4)), words((4,))
+        hea_alpha = int(rng.integers(0, 2**hn_ea))
+        torch.cuda.synchronize()
+
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        hcws, hocw = hd.gen_batch(hs0s, halphas, hbetas)
+        hy0 = hd.eval(0, hs0s[:, 0].contiguous(), hcws, hocw, hxs)
+        hy1 = hd.eval(1, hs0s[:, 1].contiguous(), hcws, hocw, hxs)
+        hrec = hg.add(hg.from_block(hy0), hg.from_block(hy1))
+        hea_rec, hea_ht, hea_key = {}, {}, {}
+        for n in ea_bits:
+            a = hea_alpha % (1 << n)
+            hea_ht[n] = HalfTreeDpf(n, hg, prg1, hash_key)
+            hea_key[n] = hea_ht[n].gen(hea_seeds, a, hea_beta)
+            e0 = hea_ht[n].eval_all(0, hea_seeds[0], *hea_key[n])
+            e1 = hea_ht[n].eval_all(1, hea_seeds[1], *hea_key[n])
+            hea_rec[n] = (hg.add(hg.from_block(e0), hg.from_block(e1)), a)
+        torch.cuda.synchronize()
+        hmain_s = time.perf_counter() - t0
+        hlaunches = counts_of(HT_SOURCES, sfx)
+
+        hrec_ok, hea_ok = point_ok(hrec, hbetas, hea_rec, hea_beta)
+        hsample_ok = same((hcws[:SAMPLE], hocw[:SAMPLE]), plain_ht.gen(
+            prg1, hg, MAIN_BITS, hk, hs0s[:SAMPLE],
+            blk.pack_inputs(halphas[:SAMPLE], MAIN_BITS), hbetas[:SAMPLE]))
+        hsample_ok &= same(hy1[:SAMPLE], plain_ht.eval_points(
+            prg1, hg, MAIN_BITS, 1, hk, hs0s[:SAMPLE, 1], hcws[:SAMPLE],
+            hocw[:SAMPLE], blk.pack_inputs(hxs[:SAMPLE], MAIN_BITS)))
+        log("main_path", scheme="half_tree", prg=type(prg1).__name__,
+            keys=hkeys, in_bits=MAIN_BITS, group=hg.name,
+            seconds=round(hmain_s, 3), reconstruct_ok=hrec_ok,
+            sample_vs_plain_ok=hsample_ok, eval_all_bits=list(ea_bits),
+            eval_all_ok=hea_ok, launches=hlaunches)
+        ok = (hrec_ok and hsample_ok and hea_ok
+              and all(v > 0 for v in hlaunches.values()))
+        return ok, dict(d=hd, g=hg, nkeys=hkeys, s0s=hs0s, alphas=halphas,
+                        betas=hbetas, cws=hcws, ocw=hocw, xs=hxs, n_ea=hn_ea,
+                        ea_seeds=hea_seeds, ea=hea_ht, ea_key=hea_key,
+                        launches=hlaunches, main_s=hmain_s)
+
+    def vdpf_path(prg2, sfx, name, hashes, log2_keys, ea_bits):
+        """5d. VDPF keyed with ``hashes``: gen_batch from a numpy seed, x at
+        alpha on even keys, elsewhere on odd ones; one key proved over
+        CHAIN_ROWS points; EvalAll with the tree fold."""
+        vkeys = 1 << log2_keys
+        valphas, vxs = point_keys(vkeys)
+        vbetas = words((vkeys, 4))
+        pxs = words((CHAIN_ROWS,), MAIN_BITS)
+        vea_alpha = int(rng.integers(0, 2**max(ea_bits)))
+        vea_beta = words((4,))
+        vd = Vdpf(MAIN_BITS, vg, prg2, hashes=hashes)
+        vea_d = {n: Vdpf(n, vg, prg2, hashes=hashes) for n in ea_bits}
+        kernels = (f"vdpf_eval{sfx}", f"dpf_gen{sfx}", f"dpf_eval_all{sfx}",
+                   f"{name}_xor_hash", f"{name}_hash64", f"{name}_chain")
         torch.cuda.synchronize()
 
         _build.reset_launches()
@@ -902,11 +994,10 @@ def main() -> int:
             peak = max(peak, torch.cuda.max_memory_allocated() - base)
         torch.cuda.synchronize()
         vmain_s = time.perf_counter() - t0
-        vlaunches[name] = {k: _build.launches[k] for k in VDPF_KERNELS[name]}
+        launches = {k: _build.launches[k] for k in kernels}
 
-        want = torch.zeros_like(vrec)
-        want[0::2, 0] = vbetas[0::2, 0]
-        vrec_ok = torch.equal(vrec, want)
+        vrec_ok, ea_ok = point_ok(vrec, vbetas, vea_rec, vea_beta)
+        vea_ok &= ea_ok
         pi_ok = torch.equal(p0, p1)
         sample = plain_vdpf.gen(prg2, plain_xor(hashes), vg, MAIN_BITS,
                                 vs0s[:SAMPLE], blk.pack_inputs(
@@ -918,242 +1009,300 @@ def main() -> int:
             prg2, plain_xor(hashes), vg, MAIN_BITS, 1, vs0s[:SAMPLE, 1],
             key[1][:SAMPLE], key[2][:SAMPLE], key[3][:SAMPLE],
             blk.pack_inputs(vxs[:SAMPLE], MAIN_BITS)))
-        for n, (r, a) in vea_rec.items():
-            expect = torch.zeros_like(r)
-            expect[a, 0] = vea_beta[0]
-            vea_ok &= r.shape == (1 << n, 4) and torch.equal(r, expect)
-        log("main_path", scheme="vdpf", hash=name, keys=vkeys,
-            in_bits=MAIN_BITS, group=vg.name, seconds=round(vmain_s, 3),
-            reconstruct_ok=vrec_ok, pi_tildes_equal=pi_ok,
-            prove_points=CHAIN_ROWS, verify_ok=verified,
-            sample_vs_plain_ok=vsample_ok,
+        log("main_path", scheme="vdpf", prg=type(prg2).__name__, hash=name,
+            keys=vkeys, in_bits=MAIN_BITS, group=vg.name,
+            seconds=round(vmain_s, 3), reconstruct_ok=vrec_ok,
+            pi_tildes_equal=pi_ok, prove_points=CHAIN_ROWS,
+            verify_ok=verified, sample_vs_plain_ok=vsample_ok,
             eval_all_bits=list(vea_d), eval_all_fold="tree",
-            eval_all_ok=vea_ok, eval_all_peak_bytes=peak,
-            launches=vlaunches[name])
-        if not (vrec_ok and pi_ok and verified and vsample_ok and vea_ok
-                and all(v > 0 for v in vlaunches[name].values())):
+            eval_all_ok=vea_ok, eval_all_peak_bytes=peak, launches=launches)
+        ok = (vrec_ok and pi_ok and verified and vsample_ok and vea_ok
+              and all(v > 0 for v in launches.values()))
+        return ok, dict(d=vd, key=key, xs=vxs, alphas=valphas, betas=vbetas,
+                        nkeys=vkeys, ea_d=vea_d, ea_k=vea_k,
+                        launches=launches, main_s=vmain_s)
+
+    # 5a-5d with ChaCha; then the AES block.
+    ok, S = dpf_path(CH[2], "", MAIN_LOG2_KEYS, EVAL_ALL_BITS)
+    if not ok:
+        return 1
+    launches = dict(S["launches"])
+    ok, DS = dcf_path(CH[4], "", DCF_MAIN_LOG2_KEYS, DCF_EVAL_ALL_BITS)
+    if not ok:
+        return 1
+    launches.update(DS["launches"])
+    ok, HS = ht_path(CH[1], "", HT_MAIN_LOG2_KEYS, HT_EVAL_ALL_BITS)
+    if not ok:
+        return 1
+    launches.update(HS["launches"])
+    vmain = {}
+    for name, hashes in (("blake3", Blake3(VDPF_IV)),
+                         ("sha256", Sha256(VDPF_SHA_KEY))):
+        ok, vmain[name] = vdpf_path(CH[2], "", name, hashes,
+                                    VDPF_MAIN_LOG2_KEYS, VDPF_EVAL_ALL_BITS)
+        if not ok:
             return 1
-        vmain[name] = (vd, key, vea_d, vea_k)
+    vlaunches = {n: v["launches"] for n, v in vmain.items()}
     launches.update({k: vlaunches["blake3"][k] for k in (
         "vdpf_eval", "blake3_xor_hash", "blake3_hash64")})
     launches["sha256_xor_hash"] = vlaunches["sha256"]["sha256_xor_hash"]
 
+    aes_main = {}
+    for scheme, path, prg in (("dpf", dpf_path, AES[2]),
+                              ("dcf", dcf_path, AES[4]),
+                              ("half_tree", ht_path, AES[1])):
+        ok, aes_main[scheme] = path(prg, "_aes", AES_LOG2_KEYS,
+                                    AES_EVAL_ALL_BITS)
+        if not ok:
+            return 1
+    ok, aes_main["vdpf"] = vdpf_path(AES[2], "_aes", "sha256",
+                                     Sha256(VDPF_SHA_KEY), AES_LOG2_KEYS,
+                                     AES_EVAL_ALL_BITS)
+    if not ok:
+        return 1
+    for v in aes_main.values():
+        launches.update({k: c for k, c in v["launches"].items()
+                         if k.endswith("_aes")})
+
     # 6. timing at the main-path shapes -----------------------------------
-    s0 = s0s[:, 0].contiguous()
-    ev = (s0, cws, xs, MAIN_BITS, 0, NONCE)
-    gv = (s0s, alphas, MAIN_BITS, NONCE)
-    expand_args = (d.prg, n_ea, 0, ea_seeds[0], ea_key[n_ea])
+    def expanders(scheme, S, P):
+        """The EvalAll expansion of S's largest domain through the kernels
+        and through their plain versions: (kernel, plain)."""
+        n = S["n_ea"]
+        if scheme == "dpf":
+            args = (P[2], n, 0, S["ea_seeds"][0], S["ea_key"][n])
+            run, plain = (eval_all_cuda.expand_leaves,
+                          eval_all_cuda.expand_packed_plain)
+        elif scheme == "dcf":
+            args = (P[4], n, 0, S["ea_seeds"][0], S["ea_key"][n], "wrap")
+            run, plain = (eval_all_cuda.dcf_expand_leaves,
+                          eval_all_cuda.dcf_expand_packed_plain)
+        else:
+            args = (P[1], n, 0, hash_key, S["ea_seeds"][0], S["ea_key"][n][0])
+            run, plain = (eval_all_cuda.ht_expand_leaves,
+                          eval_all_cuda.ht_expand_packed_plain)
+        return (lambda: run(*args), lambda: run(*args, expand=plain))
 
-    def kernel_expand():
-        return eval_all_cuda.expand_leaves(*expand_args)
+    def tree_rows(P, tag):
+        """The tree kernels at the main-path shapes of the ``tag`` paths
+        ("" ChaCha, "_aes" AES): (name, source, replaces, kernel, plain,
+        PRG blocks, bytes) each; a ChaCha block is CHACHA_OPS ALU ops, an
+        AES one AES_ALU of them and AES_LDS shared loads."""
+        D, C, H = ((S, DS, HS) if tag == "" else
+                   (aes_main["dpf"], aes_main["dcf"], aes_main["half_tree"]))
+        V = vmain["blake3"] if tag == "" else aes_main["vdpf"]
+        ev = (D["s0s"][:, 0].contiguous(), D["cws"], D["xs"], MAIN_BITS, 0,
+              P[2])
+        gv = (D["s0s"], D["alphas"], MAIN_BITS, P[2])
+        cev = (C["s0s"][:, 0].contiguous(), C["cws"], C["xs"], MAIN_BITS, 0,
+               P[4], "wrap")
+        cgv = (C["s0s"], C["alphas"], C["betas"], MAIN_BITS, P[4], "lt",
+               C["g"])
+        hev = (H["s0s"][:, 0].contiguous(), H["cws"], H["xs"], MAIN_BITS, 0,
+               P[1], hash_key)
+        hgv = (H["s0s"], H["alphas"], MAIN_BITS, P[1], hash_key)
+        vk = V["key"]
+        vev = (vk[0][:, 0].contiguous(), vk[1], V["xs"], MAIN_BITS, 0, P[2],
+               V["d"].hashes)
+        nd, nc, nh, nv = D["nkeys"], C["nkeys"], H["nkeys"], V["nkeys"]
+        n_ea, cn_ea, hn_ea = D["n_ea"], C["n_ea"], H["n_ea"]
+        aes = tag == "_aes"
+        site = {
+            "dpf_eval": ("fss_tpu/ops/aes_pallas.py:313" if aes else
+                         "fss_tpu/ops/dpf_pallas.py:513"),
+            "dpf_gen": ("fss_tpu/ops/aes_pallas.py:1178" if aes else
+                        "fss_tpu/ops/dpf_pallas.py:313"),
+            "dpf_eval_all": ("XLA: fss_tpu/schemes/dpf.py:145 (AES "
+                             "EvalAll)" if aes else
+                             "fss_tpu/ops/eval_all_pallas.py:113"),
+            "dcf_eval": ("fss_tpu/ops/aes_pallas.py:927" if aes else
+                         "fss_tpu/ops/dcf_pallas.py:255"),
+            "dcf_gen": ("fss_tpu/ops/aes_pallas.py:1521" if aes else
+                        "fss_tpu/ops/dcf_pallas.py:531"),
+            "dcf_eval_all": ("XLA: fss_tpu/schemes/dcf.py:222 (AES "
+                             "EvalAll)" if aes else
+                             "fss_tpu/ops/eval_all_pallas.py:262"),
+            "ht_eval": ("fss_tpu/ops/aes_pallas.py:639" if aes else
+                        "fss_tpu/ops/ht_pallas.py:133"),
+            "ht_gen": ("XLA: fss_tpu/schemes/half_tree_dpf.py:40 (AES Gen)"
+                       if aes else "fss_tpu/ops/ht_pallas.py:300"),
+            "ht_eval_all": ("XLA: fss_tpu/schemes/half_tree_dpf.py:226 (AES "
+                            "EvalAll)" if aes else
+                            "fss_tpu/ops/eval_all_pallas.py:400"),
+            "vdpf_eval": ("fss_tpu/ops/aes_pallas.py:421 (vdpf_eval_points: "
+                          "B-14 chained with the XorHash)" if aes else
+                          "fss_tpu/ops/vdpf_pallas.py:115"),
+        }
+        mul_eval = 4 if aes else 1  # DCF: AES mul=4 is 4 blocks
+        dk, dp = expanders("dpf", D, P)
+        ck, cp = expanders("dcf", C, P)
+        hk_, hp = expanders("half_tree", H, P)
+        vhash = "sha256" if aes else "blake3"
+        rows = [
+            # seeds 16 B, 20 B of cw a level, x 4 B in; seed 16 B, t 4 B
+            # out. Two blocks a level (ChaCha: one block gives both).
+            ("dpf_eval", lambda: dpf_cuda.eval_packed(*ev),
+             lambda: dpf_cuda.eval_packed_plain(*ev),
+             nd * MAIN_BITS * (2 if aes else 1), 0,
+             nd * (16 + MAIN_BITS * 20 + 4 + 16 + 4)),
+            ("dpf_gen", lambda: dpf_cuda.gen_packed(*gv),
+             lambda: dpf_cuda.gen_packed_plain(*gv),
+             nd * MAIN_BITS * (4 if aes else 2), 0,
+             nd * (32 + 4 + (MAIN_BITS + 1) * 32 + 2 * 16 + 2 * 4)),
+            ("dpf_eval_all", dk, dp, ((1 << n_ea) - 1) * (2 if aes else 1),
+             0, 16 + n_ea * 20 + (1 << n_ea) * (16 + 4)),
+            # seeds 16 B, cw rows 32 B a level, x 4 B in; acc, seed 16 B
+            # and t 4 B out.
+            ("dcf_eval", lambda: dcf_cuda.eval_packed(*cev),
+             lambda: dcf_cuda.eval_packed_plain(*cev),
+             nc * MAIN_BITS * mul_eval, 0,
+             nc * (16 + MAIN_BITS * 32 + 4 + 16 + 16 + 4)),
+            # seeds 32 B, alpha 4 B, beta 16 B in; n + 1 rows of 32 B out.
+            ("dcf_gen", lambda: dcf_cuda.gen_packed(*cgv),
+             lambda: dcf_cuda.gen_packed_plain(*cgv),
+             nc * MAIN_BITS * 2 * mul_eval, 0,
+             nc * (32 + 4 + 16 + (MAIN_BITS + 1) * 32)),
+            # root and cw rows in; each leaf's seed, t and acc out.
+            ("dcf_eval_all", ck, cp, ((1 << cn_ea) - 1) * mul_eval, 0,
+             16 + 16 + cn_ea * 32 + (1 << cn_ea) * (16 + 4 + 16)),
+            # seed 16 B, n - 1 CWs of 16 B, the last row's 20 B and x 4 B
+            # in; high 16 B and low 4 B out. One block a level.
+            ("ht_eval", lambda: ht_cuda.eval_packed(*hev),
+             lambda: ht_cuda.eval_packed_plain(*hev), nh * MAIN_BITS, 0,
+             nh * (16 + (MAIN_BITS - 1) * 16 + 20 + 4 + 16 + 4)),
+            # seeds 32 B and alpha 4 B in; n rows of 32 B and two leaves
+            # out. Two blocks a level and four at the last.
+            ("ht_gen", lambda: ht_cuda.gen_packed(*hgv),
+             lambda: ht_cuda.gen_packed_plain(*hgv),
+             nh * (2 * (MAIN_BITS - 1) + 4), 0,
+             nh * (32 + 4 + MAIN_BITS * 32 + 2 * 16)),
+            # root and key rows in; each leaf's high and low out.
+            # 2^(n-1) - 1 doubling blocks and 2^n conversion blocks.
+            ("ht_eval_all", hk_, hp,
+             (1 << (hn_ea - 1)) - 1 + (1 << hn_ea), 0,
+             16 + hn_ea * 20 + (1 << hn_ea) * (16 + 4)),
+            # seed 16 B, 20 B of cw a level, x 4 B in; seed 16 B, t 4 B and
+            # pi 64 B out. The walk's blocks and the XorHash.
+            ("vdpf_eval", lambda: vdpf_cuda.eval_packed(*vev),
+             lambda: vdpf_cuda.eval_packed_plain(*vev),
+             nv * MAIN_BITS * (2 if aes else 1),
+             nv * hash_alu(vhash, "xor_hash"),
+             nv * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)),
+        ]
+        out = []
+        for name, kern, plain, blocks, extra_ops, nbytes in rows:
+            ops = blocks * (AES_ALU if aes else CHACHA_OPS) + extra_ops
+            lds = blocks * AES_LDS if aes else 0
+            out.append((name + tag, f"fss_tpu_torch/csrc/{name}.cu",
+                        site[name], kern, plain, ops, nbytes, lds))
+        return out
 
-    def plain_expand():
-        return eval_all_cuda.expand_leaves(
-            *expand_args, expand=eval_all_cuda.expand_packed_plain)
-
-    ds0 = ds0s[:, 0].contiguous()
-    dev_args = (ds0, dcws, dxs, MAIN_BITS, 0, NONCE, "wrap")
-    dgv = (ds0s, dalphas, dbetas, MAIN_BITS, NONCE, "lt", dg)
-    dexpand_args = (dd.prg, dn_ea, 0, dea_seeds[0], dea_key[dn_ea], "wrap")
-
-    def dcf_kernel_expand():
-        return eval_all_cuda.dcf_expand_leaves(*dexpand_args)
-
-    def dcf_plain_expand():
-        return eval_all_cuda.dcf_expand_leaves(
-            *dexpand_args, expand=eval_all_cuda.dcf_expand_packed_plain)
-
-    hs0 = hs0s[:, 0].contiguous()
-    hev = (hs0, hcws, hxs, MAIN_BITS, 0, NONCE, hash_key)
-    hgv = (hs0s, halphas, MAIN_BITS, NONCE, hash_key)
-    hexpand_args = (hd.prg, hn_ea, 0, hash_key, hea_seeds[0],
-                    hea_key[hn_ea][0])
-
-    def ht_kernel_expand():
-        return eval_all_cuda.ht_expand_leaves(*hexpand_args)
-
-    def ht_plain_expand():
-        return eval_all_cuda.ht_expand_leaves(
-            *hexpand_args, expand=eval_all_cuda.ht_expand_packed_plain)
-
-    vd, vkey, vea_d, vea_k = vmain["blake3"]
-    vsd, vskey = vmain["sha256"][:2]
+    vkeys = vmain["blake3"]["nkeys"]
     h_a = torch.zeros((vkeys, 4), dtype=torch.int32, device=dev)
-    h_a[:, 0] = valphas  # Gen's H(alpha, leaf seed) rows
+    h_a[:, 0] = vmain["blake3"]["alphas"]  # Gen's H(alpha, leaf seed) rows
     h_b, h_m = words((vkeys, 4)), words((vkeys, 4, 4))
-    vev = (vkey[0][:, 0].contiguous(), vkey[1], vxs, MAIN_BITS, 0, NONCE,
-           vd.hashes)
-
-    kernels = [
-        ("dpf_eval", "fss_tpu_torch/csrc/dpf_eval.cu",
-         "fss_tpu/ops/dpf_pallas.py:513",
-         lambda: dpf_cuda.eval_packed(*ev),
-         lambda: dpf_cuda.eval_packed_plain(*ev),
-         nkeys * MAIN_BITS * CHACHA_OPS,
-         nkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4)),
-        ("dpf_gen", "fss_tpu_torch/csrc/dpf_gen.cu",
-         "fss_tpu/ops/dpf_pallas.py:313",
-         lambda: dpf_cuda.gen_packed(*gv),
-         lambda: dpf_cuda.gen_packed_plain(*gv),
-         nkeys * MAIN_BITS * 2 * CHACHA_OPS,
-         nkeys * (32 + 4 + (MAIN_BITS + 1) * 32 + 2 * 16 + 2 * 4)),
-        ("dpf_eval_all", "fss_tpu_torch/csrc/dpf_eval_all.cu",
-         "fss_tpu/ops/eval_all_pallas.py:113",
-         kernel_expand, plain_expand,
-         ((1 << n_ea) - 1) * CHACHA_OPS,
-         16 + n_ea * 20 + (1 << n_ea) * (16 + 4)),
-        # seeds 16 B, cw rows 32 B a level, x 4 B in; acc, seed 16 B and
-        # t 4 B out.
-        ("dcf_eval", "fss_tpu_torch/csrc/dcf_eval.cu",
-         "fss_tpu/ops/dcf_pallas.py:255",
-         lambda: dcf_cuda.eval_packed(*dev_args),
-         lambda: dcf_cuda.eval_packed_plain(*dev_args),
-         dkeys * MAIN_BITS * CHACHA_OPS,
-         dkeys * (16 + MAIN_BITS * 32 + 4 + 16 + 16 + 4)),
-        # seeds 32 B, alpha 4 B, beta 16 B in; n + 1 rows of 32 B out.
-        ("dcf_gen", "fss_tpu_torch/csrc/dcf_gen.cu",
-         "fss_tpu/ops/dcf_pallas.py:531",
-         lambda: dcf_cuda.gen_packed(*dgv),
-         lambda: dcf_cuda.gen_packed_plain(*dgv),
-         dkeys * MAIN_BITS * 2 * CHACHA_OPS,
-         dkeys * (32 + 4 + 16 + (MAIN_BITS + 1) * 32)),
-        # root and cw rows in; each leaf's seed, t and acc out.
-        ("dcf_eval_all", "fss_tpu_torch/csrc/dcf_eval_all.cu",
-         "fss_tpu/ops/eval_all_pallas.py:262",
-         dcf_kernel_expand, dcf_plain_expand,
-         ((1 << dn_ea) - 1) * CHACHA_OPS,
-         16 + 16 + dn_ea * 32 + (1 << dn_ea) * (16 + 4 + 16)),
-        # seed 16 B, n - 1 CWs of 16 B, the last row's 20 B and x 4 B in;
-        # high 16 B and low 4 B out. One block a level.
-        ("ht_eval", "fss_tpu_torch/csrc/ht_eval.cu",
-         "fss_tpu/ops/ht_pallas.py:133",
-         lambda: ht_cuda.eval_packed(*hev),
-         lambda: ht_cuda.eval_packed_plain(*hev),
-         hkeys * MAIN_BITS * CHACHA_OPS,
-         hkeys * (16 + (MAIN_BITS - 1) * 16 + 20 + 4 + 16 + 4)),
-        # seeds 32 B and alpha 4 B in; n rows of 32 B and two leaves out.
-        # Two blocks a level and four at the last.
-        ("ht_gen", "fss_tpu_torch/csrc/ht_gen.cu",
-         "fss_tpu/ops/ht_pallas.py:300",
-         lambda: ht_cuda.gen_packed(*hgv),
-         lambda: ht_cuda.gen_packed_plain(*hgv),
-         hkeys * (2 * (MAIN_BITS - 1) + 4) * CHACHA_OPS,
-         hkeys * (32 + 4 + MAIN_BITS * 32 + 2 * 16)),
-        # root and key rows in; each leaf's high and low out.
-        # 2^(n-1) - 1 doubling blocks and 2^n conversion blocks.
-        ("ht_eval_all", "fss_tpu_torch/csrc/ht_eval_all.cu",
-         "fss_tpu/ops/eval_all_pallas.py:400",
-         ht_kernel_expand, ht_plain_expand,
-         ((1 << (hn_ea - 1)) - 1 + (1 << hn_ea)) * CHACHA_OPS,
-         16 + hn_ea * 20 + (1 << hn_ea) * (16 + 4)),
+    hash_rows = [
         # a and b 16 B in, 64 B out a row; two compressions.
         ("blake3_xor_hash", "fss_tpu_torch/csrc/blake3.cu",
          "fss_tpu/ops/blake3_pallas.py:135",
          lambda: blake3_cuda.xor_hash(VDPF_IV, h_a, h_b),
          lambda: blake3_cuda.xor_hash_plain(VDPF_IV, h_a, h_b),
-         vkeys * hash_alu("blake3", "xor_hash"), vkeys * (16 + 16 + 64)),
+         vkeys * hash_alu("blake3", "xor_hash"), vkeys * (16 + 16 + 64), 0),
         # 64 B in, 32 B out a row; one compression.
         ("blake3_hash64", "fss_tpu_torch/csrc/blake3.cu",
          "fss_tpu/ops/blake3_pallas.py:171",
          lambda: blake3_cuda.hash64(VDPF_IV, h_m),
          lambda: blake3_cuda.hash64_plain(VDPF_IV, h_m),
-         vkeys * hash_alu("blake3", "hash64"), vkeys * (64 + 32)),
+         vkeys * hash_alu("blake3", "hash64"), vkeys * (64 + 32), 0),
         ("sha256_xor_hash", "fss_tpu_torch/csrc/sha256.cu",
          "fss_tpu/ops/sha256_pallas.py:129",
          lambda: sha256_cuda.xor_hash(VDPF_SHA_KEY, h_a, h_b),
          lambda: sha256_cuda.xor_hash_plain(VDPF_SHA_KEY, h_a, h_b),
-         vkeys * hash_alu("sha256", "xor_hash"), vkeys * (16 + 16 + 64)),
-        # seed 16 B, 20 B of cw a level, x 4 B in; seed 16 B, t 4 B and pi
-        # 64 B out. The walk's blocks and the BLAKE3 XorHash.
-        ("vdpf_eval", "fss_tpu_torch/csrc/vdpf_eval.cu",
-         "fss_tpu/ops/vdpf_pallas.py:115",
-         lambda: vdpf_cuda.eval_packed(*vev),
-         lambda: vdpf_cuda.eval_packed_plain(*vev),
-         vkeys * (MAIN_BITS * CHACHA_OPS + hash_alu("blake3", "xor_hash")),
-         vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)),
+         vkeys * hash_alu("sha256", "xor_hash"), vkeys * (16 + 16 + 64), 0),
+        ("sha256_hash64", "fss_tpu_torch/csrc/sha256.cu",
+         "XLA: fss_tpu/hash/sha256.py:144 (Sha256.hash64)",
+         lambda: sha256_cuda.hash64(VDPF_SHA_KEY, h_m),
+         lambda: sha256_cuda.hash64_plain(VDPF_SHA_KEY, h_m),
+         vkeys * hash_alu("sha256", "hash64"), vkeys * (64 + 32), 0),
     ]
+    launches["sha256_hash64"] = vlaunches["sha256"]["sha256_hash64"]
     rows = []
-    for name, src, replaces, kern, plain, ops, nbytes in kernels:
+    for name, src, replaces, kern, plain, ops, nbytes, lds in (
+            tree_rows(CH, "") + hash_rows + tree_rows(AES, "_aes")):
         ms = cuda_ms(kern, 20)
         plain_ms = cuda_ms(plain, 2)
         err = max_abs_err(kern(), plain())
-        bound_ms, bound_by = bound(ops, nbytes)
+        bound_ms, bound_by = bound(ops, nbytes, lds)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "status": "ported",
+                     "tpu_row": TPU_ROWS.get(name, "XLA glue"),
+                     "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None})
         if err:
+            log("kernels_vs_plain", kernel=name, max_abs_err=err)
             return 1
+    by_name = {r["name"]: r for r in rows}
 
-    gen_ms = cuda_ms(lambda: d.gen_batch(s0s, alphas, betas), 10)
-    eval_ms = cuda_ms(lambda: d.eval(0, s0, cws, xs), 10)
-    ea_ms = {n: cuda_ms(lambda n=n: ea_dpf[n].eval_all(0, ea_seeds[0],
-                                                        ea_key[n]), 5)
-             for n in EVAL_ALL_BITS}
-    log("timing", card=kind, power_limit=smi.split(",")[-1].strip(),
-        gen_keys_per_s=nkeys / (gen_ms / 1e3), gen_ms=gen_ms,
-        gen_bound_ms=rows[1]["bound_ms"],
-        eval_per_s=nkeys / (eval_ms / 1e3), eval_ms=eval_ms,
-        eval_bound_ms=rows[0]["bound_ms"],
-        eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
-                              for n, ms in ea_ms.items()},
-        eval_all_ms=ea_ms,
-        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
-                          "temperature.gpu"))
-    dgen_ms = cuda_ms(lambda: dd.gen_batch(ds0s, dalphas, dbetas), 10)
-    deval_ms = cuda_ms(lambda: dd.eval(0, ds0, dcws, dxs), 10)
-    dea_ms = {n: cuda_ms(lambda n=n: dea_dcf[n].eval_all(0, dea_seeds[0],
-                                                         dea_key[n]), 5)
-              for n in DCF_EVAL_ALL_BITS}
-    log("timing", scheme="dcf", card=kind,
-        power_limit=smi.split(",")[-1].strip(),
-        dcf_gen_keys_per_s=dkeys / (dgen_ms / 1e3), dcf_gen_ms=dgen_ms,
-        dcf_gen_bound_ms=rows[4]["bound_ms"],
-        dcf_eval_per_s=dkeys / (deval_ms / 1e3), dcf_eval_ms=deval_ms,
-        dcf_eval_bound_ms=rows[3]["bound_ms"],
-        dcf_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
-                                  for n, ms in dea_ms.items()},
-        dcf_eval_all_ms=dea_ms,
-        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
-                          "temperature.gpu"))
-    hgen_ms = cuda_ms(lambda: hd.gen_batch(hs0s, halphas, hbetas), 10)
-    heval_ms = cuda_ms(lambda: hd.eval(0, hs0, hcws, hocw, hxs), 10)
-    hea_ms = {n: cuda_ms(lambda n=n: hea_ht[n].eval_all(0, hea_seeds[0],
-                                                        *hea_key[n]), 5)
-              for n in HT_EVAL_ALL_BITS}
-    log("timing", scheme="half_tree", card=kind,
-        power_limit=smi.split(",")[-1].strip(),
-        ht_gen_keys_per_s=hkeys / (hgen_ms / 1e3), ht_gen_ms=hgen_ms,
-        ht_gen_bound_ms=rows[7]["bound_ms"],
-        ht_eval_per_s=hkeys / (heval_ms / 1e3), ht_eval_ms=heval_ms,
-        ht_eval_bound_ms=rows[6]["bound_ms"],
-        ht_eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
-                                 for n, ms in hea_ms.items()},
-        ht_eval_all_ms=hea_ms,
-        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
-                          "temperature.gpu"))
+    def entry_timing(scheme, P, M, extra=None):
+        """End-to-end times of one path's entry points at its shapes, with
+        the kernels' times beside them."""
+        d, nk = M["d"], M["nkeys"]
+        s0 = M["s0s"][:, 0].contiguous()
+        if scheme == "half_tree":
+            ev = lambda: d.eval(0, s0, M["cws"], M["ocw"], M["xs"])  # noqa
+        else:
+            ev = lambda: d.eval(0, s0, M["cws"], M["xs"])  # noqa: E731
+        gen_ms = cuda_ms(lambda: d.gen_batch(M["s0s"], M["alphas"],
+                                             M["betas"]), 10)
+        eval_ms = cuda_ms(ev, 10)
+        eas = M["ea"]
+        ea_ms = {n: cuda_ms(lambda n=n: eas[n].eval_all(
+            0, M["ea_seeds"][0], *(M["ea_key"][n] if scheme == "half_tree"
+                                   else (M["ea_key"][n],))), 5)
+                 for n in eas}
+        short = {"dpf": "dpf", "dcf": "dcf", "half_tree": "ht"}[scheme]
+        tag = "_aes" if isinstance(P[1], AesMmo) else ""
+        log("timing", scheme=scheme, prg=type(P[1]).__name__, card=kind,
+            power_limit=smi.split(",")[-1].strip(),
+            gen_keys_per_s=nk / (gen_ms / 1e3), gen_ms=gen_ms,
+            gen_kernel_ms=by_name[f"{short}_gen{tag}"]["ms"],
+            gen_bound_ms=by_name[f"{short}_gen{tag}"]["bound_ms"],
+            eval_per_s=nk / (eval_ms / 1e3), eval_ms=eval_ms,
+            eval_kernel_ms=by_name[f"{short}_eval{tag}"]["ms"],
+            eval_bound_ms=by_name[f"{short}_eval{tag}"]["bound_ms"],
+            eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
+                                  for n, ms in ea_ms.items()},
+            eval_all_ms=ea_ms,
+            eval_all_kernel_ms=by_name[f"{short}_eval_all{tag}"]["ms"],
+            main_path_s=M["main_s"], **(extra or {}),
+            clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                              "temperature.gpu"))
 
-    # The VDPF: the SHA-256 H' and fused eval (held against their plain
-    # versions at this size too), the one-thread chains, the entry points,
-    # gen_batch's host draws, and EvalAll's parts at 24 bits.
-    sev = vev[:-1] + (vsd.hashes,)
-    sha_h64 = (lambda: sha256_cuda.hash64(VDPF_SHA_KEY, h_m),
-               lambda: sha256_cuda.hash64_plain(VDPF_SHA_KEY, h_m))
+    for scheme, M in (("dpf", S), ("dcf", DS), ("half_tree", HS)):
+        entry_timing(scheme, CH, M)
+
+    # The VDPF: the SHA-256 fused eval (held against its plain version at
+    # this size too), the one-thread chains, the entry points, gen_batch's
+    # host draws, and EvalAll's parts at 24 bits.
+    vd, vkey = vmain["blake3"]["d"], vmain["blake3"]["key"]
+    vsd = vmain["sha256"]["d"]
+    vxs = vmain["blake3"]["xs"]
+    sev = (vkey[0][:, 0].contiguous(), vkey[1], vxs, MAIN_BITS, 0, CH[2],
+           vsd.hashes)
     sha_eval = (lambda: vdpf_cuda.eval_packed(*sev),
                 lambda: vdpf_cuda.eval_packed_plain(*sev))
-    sha_err = {"sha256_hash64": max_abs_err(*(f() for f in sha_h64)),
-               "vdpf_eval sha256": max_abs_err(*(f() for f in sha_eval))}
-    log("kernels_vs_plain", rows=vkeys, max_abs_err=sha_err)
-    if any(sha_err.values()):
+    sha_err = max_abs_err(*(f() for f in sha_eval))
+    log("kernels_vs_plain", rows=vkeys,
+        max_abs_err={"vdpf_eval sha256": sha_err})
+    if sha_err:
         return 1
-    sha_h64 = (cuda_ms(sha_h64[0], 20), cuda_ms(sha_h64[1], 2),
-               bound(vkeys * hash_alu("sha256", "hash64"), vkeys * 96))
     sha_eval = (cuda_ms(sha_eval[0], 20), cuda_ms(sha_eval[1], 2),
                 bound(vkeys * (MAIN_BITS * CHACHA_OPS
                                + hash_alu("sha256", "xor_hash")),
                       vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)))
-    chain_ms = {name: cuda_ms(lambda h=v[0].hashes: vdpf_cuda.prove(
+    chain_ms = {name: cuda_ms(lambda h=v["d"].hashes: vdpf_cuda.prove(
         h, pts, cs0), 3) for name, v in vmain.items()}
     t0 = time.perf_counter()
     draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
@@ -1162,18 +1311,20 @@ def main() -> int:
     blk.words(draws, dev)
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
-    vtimes = {}
-    for name, (d_, key, _, _) in vmain.items():
-        vtimes[name] = (
-            cuda_ms(lambda d_=d_, key=key: d_.eval(
-                0, key[0][:, 0].contiguous(), *key[1:], vxs), 10),
-            cuda_ms(lambda d_=d_: d_.gen_batch(np.random.default_rng(7),
-                                               valphas, vbetas), 3))
-    vea_ms = {f"{name} {n}": cuda_ms(lambda e=ed[n], k=ek[n]: e.eval_all(
-        0, k[0][0], *k[1:], fold="tree"), 3)
-        for name, (_, _, ed, ek) in vmain.items() for n in VDPF_EVAL_ALL_BITS}
-    es, et = eval_all_cuda.expand_leaves(vd.prg, vn_ea, 0,
-                                         vea_k[vn_ea][0][0],
+
+    def vdpf_times(V):
+        d_, key = V["d"], V["key"]
+        return (cuda_ms(lambda: d_.eval(0, key[0][:, 0].contiguous(),
+                                        *key[1:], V["xs"]), 10),
+                cuda_ms(lambda: d_.gen_batch(np.random.default_rng(7),
+                                             V["alphas"], V["betas"]), 3),
+                {n: cuda_ms(lambda e=V["ea_d"][n], k=V["ea_k"][n]: e.eval_all(
+                    0, k[0][0], *k[1:], fold="tree"), 3) for n in V["ea_d"]})
+
+    vtimes = {name: vdpf_times(v) for name, v in vmain.items()}
+    vn_ea = max(VDPF_EVAL_ALL_BITS)
+    vea_k = vmain["blake3"]["ea_k"]
+    es, et = eval_all_cuda.expand_leaves(vd.prg, vn_ea, 0, vea_k[vn_ea][0][0],
                                          vea_k[vn_ea][1])
     ex = plain_vdpf.domain_lanes(vn_ea, dev)
     epts = blake3_cuda.xor_hash(VDPF_IV, ex, es)
@@ -1185,7 +1336,7 @@ def main() -> int:
         "tree_fold_ms": cuda_ms(lambda: vdpf_cuda.fold(
             vd.hashes, epts, vea_k[vn_ea][2], "tree"), 3)}
     del es, et, ex, epts
-    log("timing", scheme="vdpf", card=kind,
+    log("timing", scheme="vdpf", prg="ChaCha", card=kind,
         power_limit=smi.split(",")[-1].strip(),
         vdpf_eval_per_s={n: vkeys / (t[0] / 1e3) for n, t in vtimes.items()},
         vdpf_eval_ms={n: t[0] for n, t in vtimes.items()},
@@ -1197,15 +1348,29 @@ def main() -> int:
         vdpf_eval_sha256_kernel_ms=sha_eval[0],
         vdpf_eval_sha256_plain_ms=sha_eval[1],
         vdpf_eval_sha256_bound_ms=sha_eval[2],
-        sha256_hash64_ms=sha_h64[0], sha256_hash64_plain_ms=sha_h64[1],
-        sha256_hash64_bound_ms=sha_h64[2],
-        sha256_hash64_launches=vlaunches["sha256"]["sha256_hash64"],
         chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms}
                   for n, ms in chain_ms.items()},
         vdpf_eval_all_items_per_s={
-            k: (1 << int(k.split()[1])) / (ms / 1e3)
-            for k, ms in vea_ms.items()},
-        vdpf_eval_all_ms=vea_ms, vdpf_eval_all_parts={vn_ea: vea_parts},
+            n: {k: (1 << k) / (ms / 1e3) for k, ms in t[2].items()}
+            for n, t in vtimes.items()},
+        vdpf_eval_all_ms={n: t[2] for n, t in vtimes.items()},
+        vdpf_eval_all_parts={vn_ea: vea_parts},
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+
+    # The AES block's entry points.
+    for scheme in ("dpf", "dcf", "half_tree"):
+        entry_timing(scheme, AES, aes_main[scheme])
+    av = aes_main["vdpf"]
+    at = vdpf_times(av)
+    log("timing", scheme="vdpf", prg="AesMmo", hash="sha256", card=kind,
+        power_limit=smi.split(",")[-1].strip(),
+        eval_per_s=av["nkeys"] / (at[0] / 1e3), eval_ms=at[0],
+        eval_kernel_ms=by_name["vdpf_eval_aes"]["ms"],
+        gen_keys_per_s=av["nkeys"] / (at[1] / 1e3), gen_batch_ms=at[1],
+        eval_all_items_per_s={k: (1 << k) / (ms / 1e3)
+                              for k, ms in at[2].items()},
+        eval_all_ms=at[2], main_path_s=av["main_s"],
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
 

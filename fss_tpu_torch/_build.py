@@ -10,8 +10,13 @@ later process reuses them and an edited source is rebuilt.
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when
 that is not 0 and counts the launch in :data:`launches`, by kernel: a
-source with one kernel counts under its own name, and ``blake3.cu`` and
-``sha256.cu`` under one name per entry point (``KERNELS``).
+source with one kernel counts under its own name (with ``_aes`` appended
+when it ran the AES-128-MMO PRG), and ``blake3.cu`` and ``sha256.cu``
+under one name per entry point (``KERNELS``).
+
+The PRG reaches a kernel as one host pointer to an ``fss::PrgArg``
+(``csrc/prg.cuh``), built by :func:`prg_arg` from a ``ChaCha`` or
+``AesMmo`` object; the entry point picks the kernel's instantiation.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
+
+from fss_tpu_torch.prg.aes import AesMmo
+from fss_tpu_torch.prg.chacha import ChaCha
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -32,9 +41,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
 SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
            "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all", "blake3",
            "sha256", "vdpf_eval")
-HEADERS = ("chacha.cuh", "group.cuh", "dcf_acc.cuh", "dpf_walk.cuh",
-           "blake3.cuh", "sha256.cuh")  # digested by every .so
-KERNELS = (*(s for s in SOURCES if s not in ("blake3", "sha256")),
+HEADERS = ("chacha.cuh", "aes.cuh", "prg.cuh", "group.cuh", "dcf_acc.cuh",
+           "dpf_walk.cuh", "blake3.cuh", "sha256.cuh")  # digested by every .so
+PRG_SOURCES = tuple(s for s in SOURCES if s not in ("blake3", "sha256"))
+KERNELS = (*PRG_SOURCES, *(f"{s}_aes" for s in PRG_SOURCES),
            "blake3_xor_hash", "blake3_hash64", "blake3_chain",
            "sha256_xor_hash", "sha256_hash64", "sha256_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -132,6 +142,37 @@ def launch(source: str, fn, *args, device: torch.device,
     if rc != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
     launches[kernel or source] += 1
+
+
+class PrgArg(ctypes.Structure):
+    """``fss::PrgArg`` of ``csrc/prg.cuh``."""
+
+    _fields_ = [("kind", ctypes.c_uint32), ("n0", ctypes.c_uint32),
+                ("n1", ctypes.c_uint32), ("rounds", ctypes.c_uint32),
+                ("rk", ctypes.c_uint32 * 176)]
+
+
+def check_prg(prg, mul: int) -> None:
+    """Raise unless ``prg`` is a ChaCha or AesMmo with ``mul`` outputs."""
+    if not isinstance(prg, (ChaCha, AesMmo)) or prg.mul != mul:
+        raise ValueError(f"the kernel needs the ChaCha or AES-MMO PRG with "
+                         f"mul={mul}, got {prg!r}")
+
+
+def prg_arg(prg, mul: int):
+    """A PRG object -> (a pointer to its host ``PrgArg``, the entry
+    points' ``const void* prg``; the launch-count suffix: "" for ChaCha,
+    "_aes" for AES-128-MMO). Raises unless ``prg`` is a ChaCha or AesMmo
+    with ``mul`` outputs, the kernel's."""
+    check_prg(prg, mul)
+    arg = PrgArg()
+    if isinstance(prg, ChaCha):
+        arg.kind, (arg.n0, arg.n1), arg.rounds = 0, prg.nonce, prg.rounds
+        return ctypes.pointer(arg), ""
+    arg.kind = 1
+    words = prg.round_keys.reshape(-1)
+    arg.rk[:words.size] = [int(w) for w in words.astype(np.uint32)]
+    return ctypes.pointer(arg), "_aes"
 
 
 def check(t: torch.Tensor, name: str, device: torch.device,

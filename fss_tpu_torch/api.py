@@ -2,7 +2,8 @@
 
 Counterpart of ``fss_tpu.api`` for the DPF, DCF, Half-Tree DPF and
 verifiable DPF schemes (``Dpf``, ``PackedDpfKeys``, ``Dcf``,
-``HalfTreeDpf``, ``Vdpf``, ``DEFAULT_NONCE``, ``DEFAULT_HASH_IV``).
+``HalfTreeDpf``, ``Vdpf``, ``DEFAULT_NONCE``, ``DEFAULT_HASH_IV``), each
+with the ChaCha PRG (the default) or AES-128-MMO (``prg.aes.AesMmo``).
 Entry points run on the card unless the caller asks for the CPU:
 ``device="cuda"`` is the default, and inputs given as ints, lists, numpy
 arrays or tensors are moved to the scheme's ``device``. On a CUDA device
@@ -27,6 +28,7 @@ from fss_tpu_torch import groups
 from fss_tpu_torch.hash import Blake3
 from fss_tpu_torch.ops import (dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda,
                                vdpf_cuda)
+from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import vdpf as _vdpf
 
@@ -65,8 +67,9 @@ class PackedDpfKeys(typing.NamedTuple):
 
 
 class _TreeScheme:
-    """What Dpf and Dcf share: the domain, group, ChaCha PRG with
-    ``MUL`` outputs, device, and the staging of inputs."""
+    """What the schemes share: the domain, group, PRG (ChaCha or
+    AES-128-MMO) with ``MUL`` outputs, device, and the staging of
+    inputs."""
 
     MUL = 0
 
@@ -77,9 +80,10 @@ class _TreeScheme:
         self.group = group if group is not None else groups.Bytes()
         self.prg = prg if prg is not None else ChaCha(mul=self.MUL,
                                                       nonce=DEFAULT_NONCE)
-        if not isinstance(self.prg, ChaCha) or self.prg.mul != self.MUL:
-            raise ValueError(f"{type(self).__name__} needs the ChaCha PRG "
-                             f"with mul={self.MUL}")
+        if (not isinstance(self.prg, (ChaCha, AesMmo))
+                or self.prg.mul != self.MUL):
+            raise ValueError(f"{type(self).__name__} needs the ChaCha or "
+                             f"AES-MMO PRG with mul={self.MUL}")
         self.device = torch.device(device)
 
     # -- input staging ----------------------------------------------------
@@ -110,7 +114,7 @@ class _TreeScheme:
 
 
 class Dpf(_TreeScheme):
-    """2-party DPF with the ChaCha PRG (mul=2).
+    """2-party DPF with the ChaCha or AES-MMO PRG (mul=2).
 
     Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
     """
@@ -126,16 +130,14 @@ class Dpf(_TreeScheme):
         ``layout="wire"`` returns cws [B, in_bits+1, 8];
         ``layout="packed"`` returns :class:`PackedDpfKeys`.
         """
-        args = (self.prg.nonce, self.group, self.in_bits,
-                self._blocks(s0s), self._inputs(alphas),
-                self._blocks(betas))
+        args = (self.prg, self.group, self.in_bits, self._blocks(s0s),
+                self._inputs(alphas), self._blocks(betas))
         if layout == "packed":
-            return PackedDpfKeys(*dpf_cuda.gen_batch_packed(
-                *args, rounds=self.prg.rounds))
+            return PackedDpfKeys(*dpf_cuda.gen_batch_packed(*args))
         if layout != "wire":
             raise ValueError(f"layout must be 'wire' or 'packed', got "
                              f"{layout}")
-        return dpf_cuda.gen_batch(*args, rounds=self.prg.rounds)
+        return dpf_cuda.gen_batch(*args)
 
     def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
         """Point evaluation. s0 [B, 4] or [4]; cws wire rows
@@ -146,13 +148,11 @@ class Dpf(_TreeScheme):
         s0 = self._blocks(s0)
         if isinstance(cws, PackedDpfKeys):
             y = dpf_cuda.eval_points_packedkey(
-                self.prg.nonce, self.group, self.in_bits, int(party), s0,
-                self._blocks(cws.cws_p), self._blocks(cws.ocw), x,
-                rounds=self.prg.rounds)
+                self.prg, self.group, self.in_bits, int(party), s0,
+                self._blocks(cws.cws_p), self._blocks(cws.ocw), x)
         else:
-            y = dpf_cuda.eval_points(
-                self.prg.nonce, self.group, self.in_bits, int(party), s0,
-                self._blocks(cws), x, rounds=self.prg.rounds)
+            y = dpf_cuda.eval_points(self.prg, self.group, self.in_bits,
+                                     int(party), s0, self._blocks(cws), x)
         return y[0] if isinstance(xs, (int, np.integer)) else y
 
     def eval_all(self, party: int, s0, cws) -> torch.Tensor:
@@ -163,7 +163,7 @@ class Dpf(_TreeScheme):
 
 
 class Dcf(_TreeScheme):
-    """2-party DCF with the ChaCha PRG (mul=4): y0 + y1 = beta where
+    """2-party DCF with the ChaCha or AES-MMO PRG (mul=4): y0 + y1 = beta where
     x < alpha (``pred="lt"``) or x > alpha (``pred="gt"``), else 0.
 
     Keys: cws (in_bits+1, 8) int32, the reference's wire layout.
@@ -182,20 +182,18 @@ class Dcf(_TreeScheme):
         """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
         (or [B, 4] lanes, or a list of ints), betas [B, 4]. Returns wire
         rows cws [B, in_bits+1, 8]."""
-        return dcf_cuda.gen_batch(self.prg.nonce, self.group, self.in_bits,
+        return dcf_cuda.gen_batch(self.prg, self.group, self.in_bits,
                                   self.pred, self._blocks(s0s),
-                                  self._inputs(alphas), self._blocks(betas),
-                                  rounds=self.prg.rounds)
+                                  self._inputs(alphas), self._blocks(betas))
 
     def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
         """Point evaluation. s0 [B, 4] or [4]; cws wire rows
         [B, in_bits+1, 8] or one key [in_bits+1, 8]; xs ints, an int
         array, or [B, 4] lanes. Returns [B, 4] shares ([4] for a single int
         x)."""
-        y = dcf_cuda.eval_points(self.prg.nonce, self.group, self.in_bits,
+        y = dcf_cuda.eval_points(self.prg, self.group, self.in_bits,
                                  int(party), self._blocks(s0),
-                                 self._blocks(cws), self._inputs(xs),
-                                 rounds=self.prg.rounds)
+                                 self._blocks(cws), self._inputs(xs))
         return y[0] if isinstance(xs, (int, np.integer)) else y
 
     def eval_all(self, party: int, s0, cws) -> torch.Tensor:
@@ -206,8 +204,8 @@ class Dcf(_TreeScheme):
 
 
 class HalfTreeDpf(_TreeScheme):
-    """2-party Half-Tree DPF with the ChaCha PRG (mul=1) as its CCR hash
-    H(hash_key ^ node).
+    """2-party Half-Tree DPF with the ChaCha or AES-MMO PRG (mul=1) as its
+    CCR hash H(hash_key ^ node).
 
     Keys: (cws (in_bits, 8) int32, ocw (4,) int32), the reference's
     layout. ``hash_key`` is the public CCR-hash tweak, 4 words shared by
@@ -232,19 +230,18 @@ class HalfTreeDpf(_TreeScheme):
         """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
         (or [B, 4] lanes, or a list of ints), betas [B, 4]. Returns
         (cws [B, in_bits, 8], ocw [B, 4])."""
-        return ht_cuda.gen_batch(self.prg.nonce, self.group, self.in_bits,
+        return ht_cuda.gen_batch(self.prg, self.group, self.in_bits,
                                  self.hash_key, self._blocks(s0s),
-                                 self._inputs(alphas), self._blocks(betas),
-                                 rounds=self.prg.rounds)
+                                 self._inputs(alphas), self._blocks(betas))
 
     def eval(self, party: int, s0, cws, ocw, xs) -> torch.Tensor:
         """Point evaluation. s0 [B, 4] or [4]; cws [B, in_bits, 8] or one
         key [in_bits, 8]; ocw [B, 4] or [4]; xs ints, an int array, or
         [B, 4] lanes. Returns [B, 4] shares ([4] for a single int x)."""
-        y = ht_cuda.eval_points(self.prg.nonce, self.group, self.in_bits,
+        y = ht_cuda.eval_points(self.prg, self.group, self.in_bits,
                                 int(party), self.hash_key, self._blocks(s0),
                                 self._blocks(cws), self._blocks(ocw),
-                                self._inputs(xs), rounds=self.prg.rounds)
+                                self._inputs(xs))
         return y[0] if isinstance(xs, (int, np.integer)) else y
 
     def eval_all(self, party: int, s0, cws, ocw) -> torch.Tensor:
@@ -256,7 +253,8 @@ class HalfTreeDpf(_TreeScheme):
 
 
 class Vdpf(_TreeScheme):
-    """Verifiable DPF with the ChaCha PRG (mul=2) and a keyed hash.
+    """Verifiable DPF with the ChaCha or AES-MMO PRG (mul=2) and a keyed
+    hash.
 
     Keys: (cws (in_bits, 8), cs (4, 4), ocw (4,)) int32, the reference's
     layout. ``gen`` returns the reference's ``fail`` flag (the parties'
@@ -282,9 +280,8 @@ class Vdpf(_TreeScheme):
         self.hashes = hashes
 
     def _gen_keys(self, s0s, alphas, betas):
-        return vdpf_cuda.gen_batch(self.prg.nonce, self.hashes, self.group,
-                                   self.in_bits, s0s, alphas, betas,
-                                   rounds=self.prg.rounds)
+        return vdpf_cuda.gen_batch(self.prg, self.hashes, self.group,
+                                   self.in_bits, s0s, alphas, betas)
 
     def gen(self, s0s, alpha, beta):
         """One key: s0s [2, 4], alpha an int (or lanes), beta [4]. Returns
@@ -341,10 +338,9 @@ class Vdpf(_TreeScheme):
         ints, an int array, or [B, 4] lanes. Returns (ys [B, 4], pi_tildes
         [B, 4, 4]), or ([4], [4, 4]) for a single int x."""
         ys, pi = vdpf_cuda.eval_points(
-            self.prg.nonce, self.hashes, self.group, self.in_bits,
-            int(party), self._blocks(s0), self._blocks(cws),
-            self._blocks(cs), self._blocks(ocw), self._inputs(xs),
-            rounds=self.prg.rounds)
+            self.prg, self.hashes, self.group, self.in_bits, int(party),
+            self._blocks(s0), self._blocks(cws), self._blocks(cs),
+            self._blocks(ocw), self._inputs(xs))
         if isinstance(xs, (int, np.integer)):
             return ys[0], pi[0]
         return ys, pi

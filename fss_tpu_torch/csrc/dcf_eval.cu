@@ -1,8 +1,12 @@
 // Batched DCF point evaluation: one thread per key walks every tree level
 // in registers and accumulates the path value.
 //
-// Replaces fss_tpu/ops/dcf_pallas.py:eval_packed (_make_kernel). Per
-// level: ChaCha mul=4 of the seed gives (s_l, v_l, s_r, v_r); the control
+// Replaces fss_tpu/ops/dcf_pallas.py:eval_packed (_make_kernel) with the
+// ChaCha PRG and fss_tpu/ops/aes_pallas.py:_dcf_eval_call
+// (_make_dcf_eval_kernel) with AES-128-MMO, as a template over the PRG
+// (prg.cuh); unlike the AES TPU kernel, which took xor and wrap groups, it
+// runs all five accumulator modes with either PRG. Per level: the PRG's
+// mul=4 blocks of the seed give (s_l, v_l, s_r, v_r); the control
 // bits come from the clamped bits of s_l and s_r, which are cleared, as are
 // those of v_l and v_r; the seed CW (row words 0-3) is XORed into both
 // children under the mask (0 - t); then v += (x ? v_r : v_l) + (t ? v_cw : 0)
@@ -11,24 +15,26 @@
 // (in_bits-1-i) of x, read from lane (pos >> 5) so domains of 33..128 bits
 // take x as 4 lanes (template parameter kWide: otherwise x is one word).
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. A level is one 960-op
-// ChaCha block plus ~30 ops of correction, selection and accumulation,
-// against 32 bytes of cw read; at 2^20 keys x 16 levels that is ~1.6e10 ops
-// (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) but ~0.54 GB (~0.16 ms at
-// 3.35 TB/s). As in dpf_eval.cu, the ChaCha state, the seed, t and the
-// accumulator stay in registers for the whole walk so nothing but the key
-// bytes touches memory. The cw is addressed through three strides (level,
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A level is
+// one 960-op ChaCha block plus ~30 ops of correction, selection and
+// accumulation, against 32 bytes of cw read; at 2^20 keys x 16 levels that is
+// ~1.6e10 ops (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) but ~0.54 GB (~0.16
+// ms at 3.35 TB/s). With AES: four blocks of 176 shared-memory lookups a level,
+// ~1.2e10 LDS at 2^20 keys x 16 levels (~1.4 ms at 32 a clock x 132 SMs x 1.98
+// GHz before bank conflicts). As in dpf_eval.cu, the ChaCha state, the seed, t
+// and the accumulator stay in registers for the whole walk so nothing but the
+// key bytes touches memory. The cw is addressed through three strides (level,
 // word, key), so the kernel streams wire rows [B, n+1, 8] in place or one
 // broadcast key (key stride 0).
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 #include "dcf_acc.cuh"
 
 namespace {
 
-template <bool kWide, int M>
+template <bool kWide, int M, class Prg>
 __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
                                 int64_t seed_ks,
                                 const uint32_t* __restrict__ cws,
@@ -38,8 +44,9 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
                                 int4* __restrict__ so,
                                 int32_t* __restrict__ t_out, int64_t batch,
                                 int in_bits, int party, uint4 vmask4,
-                                uint32_t n0, uint32_t n1, int rounds) {
+                                const Prg prg) {
   constexpr int kAcc = fss::Acc<M>::kWords;
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t vmask[4] = {vmask4.x, vmask4.y, vmask4.z, vmask4.w};
@@ -56,7 +63,7 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
 
   for (int i = 0; i < in_bits; ++i) {
     uint32_t o[4][4];
-    fss::chacha4(s, n0, n1, rounds, o);
+    prg.expand4(s, o);
     const uint32_t* c = key + i * cw_ls;
     uint32_t cw[8];
 #pragma unroll
@@ -93,18 +100,17 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
   t_out[k] = (int32_t)t;
 }
 
-template <bool kWide, int M>
+template <bool kWide, int M, class Prg>
 void launch(const void* seeds, int64_t seed_ks, const void* cws,
             int64_t cw_ls, int64_t cw_ws, int64_t cw_ks, const void* xs,
             void* vo, void* so, void* t_out, int64_t batch, int in_bits,
-            int party, uint4 vmask, uint32_t n0, uint32_t n1, int rounds,
-            cudaStream_t stream) {
+            int party, uint4 vmask, const Prg& prg, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  dcf_eval_kernel<kWide, M><<<(unsigned)blocks, threads, 0, stream>>>(
+  dcf_eval_kernel<kWide, M, Prg><<<(unsigned)blocks, threads, 0, stream>>>(
       (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
       cw_ks, (const uint32_t*)xs, (uint32_t*)vo, (int4*)so, (int32_t*)t_out,
-      batch, in_bits, party, vmask, n0, n1, rounds);
+      batch, in_bits, party, vmask, prg);
 }
 
 }  // namespace
@@ -115,20 +121,21 @@ void launch(const void* seeds, int64_t seed_ks, const void* cws,
 // mode: fss::Mode; vmask0..3: the contribution mask of kMod64 / kMod128*.
 // vo: [B, 5] for kMod128np, else [B, 4]; so: [B, 4] final seeds (clamped
 // bit clear); t_out: [B] control bits.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 4 keys).
 extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
                             const void* cws, int64_t cw_ls, int64_t cw_ws,
                             int64_t cw_ks, const void* xs, int wide, void* vo,
                             void* so, void* t_out, int64_t batch, int in_bits,
                             int party, int mode, uint32_t vmask0,
                             uint32_t vmask1, uint32_t vmask2, uint32_t vmask3,
-                            uint32_t n0, uint32_t n1, int rounds,
-                            void* stream) {
+                            const void* prg, void* stream) {
   if (batch <= 0) return 0;
   const uint4 vmask = make_uint4(vmask0, vmask1, vmask2, vmask3);
   cudaStream_t st = (cudaStream_t)stream;
+  return fss::with_prg<4>(prg, [&](auto p) {
 #define FSS_DCF_EVAL(W, M)                                                  \
   launch<W, M>(seeds, seed_ks, cws, cw_ls, cw_ws, cw_ks, xs, vo, so, t_out, \
-               batch, in_bits, party, vmask, n0, n1, rounds, st)
+               batch, in_bits, party, vmask, p, st)
 #define FSS_DCF_EVAL_MODES(W)                           \
   switch (mode) {                                       \
     case fss::kXor: FSS_DCF_EVAL(W, fss::kXor); break;  \
@@ -138,12 +145,13 @@ extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
     case fss::kMod128np: FSS_DCF_EVAL(W, fss::kMod128np); break; \
     default: return (int)cudaErrorInvalidValue;         \
   }
-  if (wide) {
-    FSS_DCF_EVAL_MODES(true)
-  } else {
-    FSS_DCF_EVAL_MODES(false)
-  }
+    if (wide) {
+      FSS_DCF_EVAL_MODES(true)
+    } else {
+      FSS_DCF_EVAL_MODES(false)
+    }
 #undef FSS_DCF_EVAL_MODES
 #undef FSS_DCF_EVAL
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  });
 }

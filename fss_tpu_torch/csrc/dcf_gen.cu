@@ -1,9 +1,11 @@
 // Batched DCF key generation (lt or gt): one thread per key runs both
 // parties' seeds down the path to alpha and threads the group value.
 //
-// Replaces fss_tpu/ops/dcf_pallas.py:gen_packed (_make_gen_kernel), and
-// computes the same function as fss_tpu/schemes/dcf.py:gen. Per level: two
-// ChaCha mul=4 expansions, (s_l, v_l, s_r, v_r) per party, clamped bits
+// Replaces fss_tpu/ops/dcf_pallas.py:gen_packed (_make_gen_kernel) with the
+// ChaCha PRG and fss_tpu/ops/aes_pallas.py:dcf_gen_packed
+// (_make_dcf_gen_kernel) with AES-128-MMO, as a template over the PRG
+// (prg.cuh), and computes the same function as fss_tpu/schemes/dcf.py:gen.
+// Per level: two mul=4 expansions, (s_l, v_l, s_r, v_r) per party, clamped bits
 // split off the seeds and cleared on the value blocks, which become group
 // values (from_block). The seed CW is the XOR of the off-path children;
 // the value CW is -v + v1_off - v0_off, plus beta when the off-path side is
@@ -12,34 +14,37 @@
 // {s_cw | tl_cw, into_block(v_cw) | tr_cw}; the last row is
 // {0, 0, 0, 0, v_cw_{n+1}} with v_cw_{n+1} = +-(s1 - s0 - v).
 //
-// Unlike the TPU kernel, which took Bytes and Uint(mod 0) with 32-bit
-// alphas, this kernel covers every group of the port (group.cuh, the group
-// kind a template parameter) and every alpha width (alpha as 4 lanes, bit
-// (in_bits-1-i) read from lane (pos >> 5)), so no Gen on the card needs a
-// plain path.
+// Unlike the TPU kernels, which took Bytes and Uint (mod 0, up to 64 bits) with
+// 32-bit alphas, this kernel covers every group of the port (group.cuh, the
+// group kind a template parameter) and every alpha width (alpha as 4 lanes, bit
+// (in_bits-1-i) read from lane (pos >> 5)), so no Gen on the card needs a plain
+// path.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. Two 960-op ChaCha
-// blocks per level against 32 bytes of key written; at 2^20 keys x 16
-// levels, ~3.2e10 ops (~0.96 ms at 128 lanes x 132 SMs x 1.98 GHz) against
-// ~0.6 GB (~0.18 ms at 3.35 TB/s). Both seeds, both ChaCha outputs and the
-// running value stay in registers across levels; each level's row goes out
-// as two 16-byte stores.
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. Two 960-op
+// ChaCha blocks per level against 32 bytes of key written; at 2^20 keys x 16
+// levels, ~3.2e10 ops (~0.96 ms at 128 lanes x 132 SMs x 1.98 GHz) against ~0.6
+// GB (~0.18 ms at 3.35 TB/s). With AES: eight blocks of 176 shared-memory
+// lookups a level, ~2.4e10 LDS (~2.8 ms at 32 a clock x 132 SMs x 1.98 GHz
+// before bank conflicts). Both seeds, both ChaCha outputs and the running value
+// stay in registers across levels; each level's row goes out as two 16-byte
+// stores.
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 #include "group.cuh"
 
 namespace {
 
-template <int M>
+template <int M, class Prg>
 __global__ void dcf_gen_kernel(const uint32_t* __restrict__ seeds,
                                const uint32_t* __restrict__ alphas,
                                int64_t a_ks,
                                const uint32_t* __restrict__ betas,
                                int4* __restrict__ cws, int64_t batch,
                                int in_bits, int pred_lt, fss::Group g,
-                               uint32_t n0, uint32_t n1, int rounds) {
+                               const Prg prg) {
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t* sp = seeds + k * 8;
@@ -58,8 +63,8 @@ __global__ void dcf_gen_kernel(const uint32_t* __restrict__ seeds,
 
   for (int i = 0; i < in_bits; ++i) {
     uint32_t o0[4][4], o1[4][4];
-    fss::chacha4(s0, n0, n1, rounds, o0);
-    fss::chacha4(s1, n0, n1, rounds, o1);
+    prg.expand4(s0, o0);
+    prg.expand4(s1, o1);
     const uint32_t t0l = o0[0][3] & 1u, t0r = o0[2][3] & 1u;
     const uint32_t t1l = o1[0][3] & 1u, t1r = o1[2][3] & 1u;
 #pragma unroll
@@ -146,31 +151,33 @@ __global__ void dcf_gen_kernel(const uint32_t* __restrict__ seeds,
 // for [B] with in_bits <= 32, 4 for [B, 4]); betas: [B, 4] (clamped bit
 // ignored). cws: [B, in_bits+1, 8] wire rows, every word written.
 // mode: fss::Mode of the group; mask0..3 and mod0..3: fss::Group.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 4 keys).
 extern "C" int fss_dcf_gen(const void* seeds, const void* alphas,
                            int64_t a_ks, const void* betas, void* cws,
                            int64_t batch, int in_bits, int pred_lt, int mode,
                            uint32_t mask0, uint32_t mask1, uint32_t mask2,
                            uint32_t mask3, uint32_t mod0, uint32_t mod1,
-                           uint32_t mod2, uint32_t mod3, uint32_t n0,
-                           uint32_t n1, int rounds, void* stream) {
+                           uint32_t mod2, uint32_t mod3, const void* prg,
+                           void* stream) {
   if (batch <= 0) return 0;
   const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
   const int threads = 128;
   const unsigned blocks = (unsigned)((batch + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
+  return fss::with_prg<4>(prg, [&](auto p) {
 #define FSS_DCF_GEN(M)                                                    \
-  dcf_gen_kernel<M><<<blocks, threads, 0, st>>>(                         \
+  dcf_gen_kernel<M, decltype(p)><<<blocks, threads, 0, st>>>(            \
       (const uint32_t*)seeds, (const uint32_t*)alphas, a_ks,             \
-      (const uint32_t*)betas, (int4*)cws, batch, in_bits, pred_lt, g, n0, \
-      n1, rounds)
-  switch (mode) {
-    case fss::kXor: FSS_DCF_GEN(fss::kXor); break;
-    case fss::kWrap: FSS_DCF_GEN(fss::kWrap); break;
-    case fss::kMod64: FSS_DCF_GEN(fss::kMod64); break;
-    case fss::kMod128: FSS_DCF_GEN(fss::kMod128); break;
-    case fss::kMod128np: FSS_DCF_GEN(fss::kMod128np); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+      (const uint32_t*)betas, (int4*)cws, batch, in_bits, pred_lt, g, p)
+    switch (mode) {
+      case fss::kXor: FSS_DCF_GEN(fss::kXor); break;
+      case fss::kWrap: FSS_DCF_GEN(fss::kWrap); break;
+      case fss::kMod64: FSS_DCF_GEN(fss::kMod64); break;
+      case fss::kMod128: FSS_DCF_GEN(fss::kMod128); break;
+      case fss::kMod128np: FSS_DCF_GEN(fss::kMod128np); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
 #undef FSS_DCF_GEN
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  });
 }

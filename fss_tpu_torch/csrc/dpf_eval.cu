@@ -2,22 +2,32 @@
 // in registers.
 //
 // Replaces fss_tpu/ops/dpf_pallas.py:eval_packed (_make_eval_kernel ->
-// walk). The walk itself is fss::dpf_walk (dpf_walk.cuh), shared with the
-// fused VDPF eval kernel: per level a ChaCha mul=2 block, the control bits,
-// the correction word under the mask (0 - t) and the child chosen by bit
-// (in_bits-1-i) of x, read from lane (pos >> 5) so domains of 33..128 bits
-// take x as 4 lanes.
+// walk) with the ChaCha PRG, and fss_tpu/ops/aes_pallas.py:eval_packed
+// (_make_eval_kernel) with AES-128-MMO: the kernel is a template over the
+// PRG (prg.cuh). The walk itself is fss::dpf_walk (dpf_walk.cuh), shared
+// with the fused VDPF eval kernel: per level the PRG's mul=2 pair, the
+// control bits, the correction word under the mask (0 - t) and the child
+// chosen by bit (in_bits-1-i) of x, read from lane (pos >> 5) so domains of
+// 33..128 bits take x as 4 lanes.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. A level is one 960-op
-// ChaCha block plus ~20 ops of correction and selection, against 20 bytes
-// of cw read; at 2^20 keys x 16 levels that is ~1.6e10 ops (~0.48 ms at
-// 128 lanes x 132 SMs x 1.98 GHz) but ~0.38 GB (~0.11 ms at 3.35 TB/s).
-// The design keeps the 16-word ChaCha state, the seed and t in registers
-// for the whole walk so nothing but the key bytes touches memory, and
-// rotates are single funnel shifts. The cw is addressed through three
-// strides (level, word, key), so the same kernel streams wire rows
-// [B, n+1, 8], packed planes [n, 5, B] (neighbouring threads read
-// neighbouring words), or one broadcast key (key stride 0).
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A level
+// is one 960-op ChaCha block plus ~20 ops of correction and selection,
+// against 20 bytes of cw read; at 2^20 keys x 16 levels that is ~1.6e10 ops
+// (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) but ~0.38 GB (~0.11 ms at
+// 3.35 TB/s). The design keeps the 16-word ChaCha state, the seed and t in
+// registers for the whole walk so nothing but the key bytes touches
+// memory, and rotates are single funnel shifts.
+//
+// With AES: shared-memory lookups. A level is two AES blocks of 176 table
+// lookups (aes.cuh); at 2^20 keys x 16 levels that is ~5.9e9 LDS (~0.71 ms
+// at 32 a clock x 132 SMs x 1.98 GHz with no bank conflicts, and random
+// indices into one table conflict ~3-4 ways). The tables sit in shared
+// memory, the round keys in the parameter space, the state in registers.
+//
+// The cw is addressed through three strides (level, word, key), so the same
+// kernel streams wire rows [B, n+1, 8], packed planes [n, 5, B]
+// (neighbouring threads read neighbouring words), or one broadcast key (key
+// stride 0).
 
 #include <cuda_runtime.h>
 
@@ -25,6 +35,7 @@
 
 namespace {
 
+template <class Prg>
 __global__ void dpf_eval_kernel(const uint32_t* __restrict__ seeds,
                                 int64_t seed_ks,
                                 const uint32_t* __restrict__ cws,
@@ -32,16 +43,15 @@ __global__ void dpf_eval_kernel(const uint32_t* __restrict__ seeds,
                                 const uint32_t* __restrict__ xs, int64_t x_ks,
                                 int4* __restrict__ so,
                                 int32_t* __restrict__ t_out, int64_t batch,
-                                int in_bits, int party, uint32_t n0,
-                                uint32_t n1, int rounds) {
+                                int in_bits, int party, const Prg prg) {
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t* sp = seeds + k * seed_ks;
   uint32_t s[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2),
                    __ldg(sp + 3) & ~1u};
-  const uint32_t t = fss::dpf_walk(s, (uint32_t)party, cws + k * cw_ks,
-                                   cw_ls, cw_ws, xs + k * x_ks, in_bits, n0,
-                                   n1, rounds);
+  const uint32_t t = fss::dpf_walk(prg, s, (uint32_t)party, cws + k * cw_ks,
+                                   cw_ls, cw_ws, xs + k * x_ks, in_bits);
   so[k] = make_int4((int)s[0], (int)s[1], (int)s[2], (int)s[3]);
   t_out[k] = (int32_t)t;
 }
@@ -52,18 +62,21 @@ __global__ void dpf_eval_kernel(const uint32_t* __restrict__ seeds,
 // cws: word w of level i of key k at cws[i * cw_ls + w * cw_ws + k * cw_ks].
 // xs: x lanes of key k at xs[k * x_ks]; lane (pos >> 5) must exist.
 // so: [B, 4] final seeds (clamped bit clear); t_out: [B] control bits.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 2 keys).
 extern "C" int fss_dpf_eval(const void* seeds, int64_t seed_ks,
                             const void* cws, int64_t cw_ls, int64_t cw_ws,
                             int64_t cw_ks, const void* xs, int64_t x_ks,
                             void* so, void* t_out, int64_t batch,
-                            int in_bits, int party, uint32_t n0, uint32_t n1,
-                            int rounds, void* stream) {
+                            int in_bits, int party, const void* prg,
+                            void* stream) {
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  dpf_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
-      cw_ks, (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, batch,
-      in_bits, party, n0, n1, rounds);
-  return (int)cudaGetLastError();
+  return fss::with_prg<2>(prg, [&](auto p) {
+    dpf_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
+        cw_ks, (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, batch,
+        in_bits, party, p);
+    return (int)cudaGetLastError();
+  });
 }

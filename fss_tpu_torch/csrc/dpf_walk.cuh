@@ -2,10 +2,11 @@
 // (dpf_eval.cu) and the fused VDPF eval kernel (vdpf_eval.cu), as
 // fss_tpu/ops/vdpf_pallas.py's fused kernel calls dpf_pallas.walk.
 //
-// Per level: ChaCha mul=2 of the seed, the control bits taken from the LSB
-// of word 3 of each child and cleared, the level's correction word XORed in
-// under the mask (0 - t), and the child chosen by bit (in_bits-1-i) of x,
-// read from lane (pos >> 5) so domains of 33..128 bits take x as 4 lanes.
+// Per level: the PRG's mul=2 pair of the seed (ChaCha or AES-MMO,
+// prg.cuh), the control bits taken from the LSB of word 3 of each child and
+// cleared, the level's correction word XORed in under the mask (0 - t),
+// and the child chosen by bit (in_bits-1-i) of x, read from lane
+// (pos >> 5) so domains of 33..128 bits take x as 4 lanes.
 // The cw is addressed through two strides (level, word), so the caller
 // points `key` at wire rows, packed planes or one broadcast key.
 
@@ -13,21 +14,22 @@
 
 #include <cstdint>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 
 namespace fss {
 
 // s: the root seed with the clamped bit clear, in; the leaf seed, out.
 // t: the party. Returns the leaf's control bit.
-__device__ __forceinline__ uint32_t dpf_walk(uint32_t s[4], uint32_t t,
+template <class Prg>
+__device__ __forceinline__ uint32_t dpf_walk(const Prg& prg, uint32_t s[4],
+                                             uint32_t t,
                                              const uint32_t* __restrict__ key,
                                              int64_t cw_ls, int64_t cw_ws,
                                              const uint32_t* __restrict__ x,
-                                             int in_bits, uint32_t n0,
-                                             uint32_t n1, int rounds) {
+                                             int in_bits) {
   for (int i = 0; i < in_bits; ++i) {
     uint32_t l[4], r[4];
-    chacha2(s, n0, n1, rounds, l, r);
+    prg.expand2(s, l, r);
     const uint32_t* c = key + i * cw_ls;
     const uint32_t tm = 0u - t;
     const uint32_t c3 = __ldg(c + 3 * cw_ws);

@@ -1,9 +1,11 @@
 // Batched Half-Tree DPF point evaluation: one thread per key walks the n-1
 // hash levels and the last-level conversion in registers.
 //
-// Replaces fss_tpu/ops/ht_pallas.py:eval_packed (_make_kernel). Per level:
-// one ChaCha mul=1 block of hash_key ^ node (the whole node, its control
-// bit t in the clamped bit included), then
+// Replaces fss_tpu/ops/ht_pallas.py:eval_packed (_make_kernel) with the ChaCha
+// PRG and fss_tpu/ops/aes_pallas.py:ht_eval_packed (_make_ht_eval_kernel) with
+// AES-128-MMO, as a template over the PRG (prg.cuh). Per level: one mul=1 block
+// of hash_key ^ node (the whole node, its control bit t in the clamped bit
+// included), then
 //   node = h ^ (x_bit ? node : 0) ^ (t ? cw : 0)
 // over all 128 bits: the CW's own low bit is part of it, and the new t is
 // whatever lands in bit 0. The level-i bit is bit (in_bits-1-i) of x, read
@@ -13,21 +15,24 @@
 // (t ? HCW : 0), low = lsb(h) ^ (t & LCW_{x_n}), LCW_0 in the low bit of
 // word 3 and LCW_1 in word 4. The group finalize stays in torch glue.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. A key costs in_bits
-// ChaCha blocks of 960 ops against 16 bytes of cw read a level; at 2^20
-// keys x 16 levels that is ~1.6e10 ops (~0.48 ms at 128 lanes x 132 SMs x
-// 1.98 GHz) but ~0.3 GB (~0.09 ms at 3.35 TB/s). The node and the 16-word
-// ChaCha state stay in registers for the whole walk; the hash key and the
-// nonce are kernel arguments, not compile-time constants as on the TPU, so
-// a new key needs no rebuild. Keys are wire rows [B, n, 8] read in place
-// (key stride n * 8) or one broadcast key (key stride 0).
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A key costs
+// in_bits ChaCha blocks of 960 ops against 16 bytes of cw read a level; at 2^20
+// keys x 16 levels that is ~1.6e10 ops (~0.48 ms at 128 lanes x 132 SMs x 1.98
+// GHz) but ~0.3 GB (~0.09 ms at 3.35 TB/s). With AES: one block of 176
+// shared-memory lookups a level, ~3.0e9 LDS (~0.36 ms at 32 a clock x 132 SMs x
+// 1.98 GHz before bank conflicts). The node and the 16-word ChaCha state stay
+// in registers for the whole walk; the hash key and the nonce are kernel
+// arguments, not compile-time constants as on the TPU, so a new key needs no
+// rebuild. Keys are wire rows [B, n, 8] read in place (key stride n * 8) or one
+// broadcast key (key stride 0).
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 
 namespace {
 
+template <class Prg>
 __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
                                int64_t seed_ks,
                                const uint32_t* __restrict__ cws,
@@ -37,7 +42,8 @@ __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
                                int32_t* __restrict__ low, int64_t batch,
                                int in_bits, int party, uint32_t hk0,
                                uint32_t hk1, uint32_t hk2, uint32_t hk3,
-                               uint32_t n0, uint32_t n1, int rounds) {
+                               const Prg prg) {
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t* sp = seeds + k * seed_ks;
@@ -52,7 +58,7 @@ __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
     const uint32_t xm = 0u - ((__ldg(x + (pos >> 5)) >> (pos & 31)) & 1u);
     uint32_t h[4] = {node[0] ^ hk0, node[1] ^ hk1, node[2] ^ hk2,
                      node[3] ^ hk3};
-    fss::chacha1(h, n0, n1, rounds, h);
+    prg.expand1(h, h);
     const uint32_t* c = key + i * 8;
 #pragma unroll
     for (int w = 0; w < 4; ++w)
@@ -63,7 +69,7 @@ __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
   const uint32_t xn = __ldg(x) & 1u;
   uint32_t h[4] = {node[0] ^ hk0, node[1] ^ hk1, node[2] ^ hk2,
                    ((node[3] & ~1u) | xn) ^ hk3};
-  fss::chacha1(h, n0, n1, rounds, h);
+  prg.expand1(h, h);
   const uint32_t* c = key + (in_bits - 1) * 8;
   const uint32_t c3 = __ldg(c + 3);
   const uint32_t lcw = xn ? (__ldg(c + 4) & 1u) : (c3 & 1u);
@@ -81,19 +87,21 @@ __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
 // xs: x lanes of key k at xs[k * x_ks]; lane (pos >> 5) must exist.
 // high: [B, 4] leaves (clamped bit clear); low: [B] their low bits.
 // hk0..hk3: the CCR hash key.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
 extern "C" int fss_ht_eval(const void* seeds, int64_t seed_ks,
                            const void* cws, int64_t cw_ks, const void* xs,
                            int64_t x_ks, void* high, void* low,
                            int64_t batch, int in_bits, int party,
                            uint32_t hk0, uint32_t hk1, uint32_t hk2,
-                           uint32_t hk3, uint32_t n0, uint32_t n1, int rounds,
-                           void* stream) {
+                           uint32_t hk3, const void* prg, void* stream) {
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  ht_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
-      (const uint32_t*)xs, x_ks, (int4*)high, (int32_t*)low, batch, in_bits,
-      party, hk0, hk1, hk2, hk3, n0, n1, rounds);
-  return (int)cudaGetLastError();
+  return fss::with_prg<1>(prg, [&](auto p) {
+    ht_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
+        (const uint32_t*)xs, x_ks, (int4*)high, (int32_t*)low, batch,
+        in_bits, party, hk0, hk1, hk2, hk3, p);
+    return (int)cudaGetLastError();
+  });
 }

@@ -2,8 +2,10 @@
 // expands it by L = 1..3 levels in registers and writes its 2^L
 // descendants in x order.
 //
-// Replaces fss_tpu/ops/eval_all_pallas.py:ht_eval_all (_make_ht_kernel).
-// A doubling level costs one ChaCha mul=1 block a node:
+// Replaces fss_tpu/ops/eval_all_pallas.py:ht_eval_all (_make_ht_kernel)
+// with the ChaCha PRG; with AES-128-MMO it is the card's AES Half-Tree
+// EvalAll, which the JAX package runs as XLA (a template over the PRG,
+// prg.cuh). A doubling level costs one mul=1 block a node:
 //   left = H(hash_key ^ node) ^ (t ? cw : 0),  right = left ^ node,
 // with t the node's clamped bit and every XOR over all 128 bits (the
 // parent's t bit and the CW's low bit included). The conversion level
@@ -13,33 +15,36 @@
 // rows are read as uniform loads (every thread of the launch reads the
 // same bytes), the counterpart of the TPU kernel's SMEM cw table.
 //
-// The caller runs the whole tree through this kernel, root first, in
-// launches of up to 3 levels; the conversion is the last level of the last
-// launch, so in_bits = 1 is one launch of the conversion alone.
+// The caller runs the whole tree through this kernel, root first, in launches
+// of up to 3 levels (1 with AES, fss::kMaxLevels in prg.cuh); the conversion is
+// the last level of the last launch, so in_bits = 1 is one launch of the
+// conversion alone.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. A domain of 2^n
-// leaves needs 2^(n-1) - 1 doubling blocks and 2^n conversion blocks of
-// 960 ops, 1.5x a DPF's ChaCha work for the same domain; at n = 24 that is
-// ~2.4e10 ops (~0.72 ms at 128 lanes x 132 SMs x 1.98 GHz) against
-// 2^24 x 20 bytes of leaves (~0.1 ms at 3.35 TB/s). With L a template
-// parameter the 2^L nodes are registers, and a final launch stores its
-// leaves as they are converted, so it holds only its 2^(L-1) parents.
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A domain of
+// 2^n leaves needs 2^(n-1) - 1 doubling blocks and 2^n conversion blocks of 960
+// ops, 1.5x a DPF's ChaCha work for the same domain; at n = 24 that is ~2.4e10
+// ops (~0.72 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 20 bytes of
+// leaves (~0.1 ms at 3.35 TB/s). With AES the same blocks do 176 shared-memory
+// lookups each, ~4.4e9 LDS at n = 24 (~0.53 ms at 32 a clock x 132 SMs x 1.98
+// GHz before bank conflicts). With L a template parameter the 2^L nodes are
+// registers, and a final launch stores its leaves as they are converted, so it
+// holds only its 2^(L-1) parents.
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 
 namespace {
 
-template <int L, bool FINAL>
+template <int L, bool FINAL, class Prg>
 __global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
                                  const uint32_t* __restrict__ cw_rows,
                                  int64_t cw_ls, int4* __restrict__ out,
                                  int32_t* __restrict__ low_out,
                                  int64_t count, uint32_t hk0, uint32_t hk1,
-                                 uint32_t hk2, uint32_t hk3, uint32_t n0,
-                                 uint32_t n1, int rounds) {
+                                 uint32_t hk2, uint32_t hk3, const Prg prg) {
   constexpr int D = FINAL ? L - 1 : L;  // doubling levels
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= count) return;
   uint32_t node[1 << D][4];
@@ -57,7 +62,7 @@ __global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
       const uint32_t tm = 0u - (node[j][3] & 1u);
       uint32_t h[4] = {node[j][0] ^ hk0, node[j][1] ^ hk1, node[j][2] ^ hk2,
                        node[j][3] ^ hk3};
-      fss::chacha1(h, n0, n1, rounds, h);
+      prg.expand1(h, h);
       const uint32_t left[4] = {h[0] ^ (c0 & tm), h[1] ^ (c1 & tm),
                                 h[2] ^ (c2 & tm), h[3] ^ (c3 & tm)};
 #pragma unroll
@@ -83,7 +88,7 @@ __global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
         uint32_t h[4] = {node[j][0] ^ hk0, node[j][1] ^ hk1,
                          node[j][2] ^ hk2,
                          ((node[j][3] & ~1u) | sigma) ^ hk3};
-        fss::chacha1(h, n0, n1, rounds, h);
+        prg.expand1(h, h);
         out[base + 2 * j + sigma] = make_int4(
             (int)(h[0] ^ (hcw0 & tm)), (int)(h[1] ^ (hcw1 & tm)),
             (int)(h[2] ^ (hcw2 & tm)), (int)((h[3] & ~1u) ^ (hcw3 & tm)));
@@ -99,17 +104,6 @@ __global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
   }
 }
 
-template <int L, bool FINAL>
-void launch(unsigned blocks, int threads, cudaStream_t st,
-            const uint32_t* in, const uint32_t* cw, int64_t cw_ls, void* out,
-            void* low, int64_t count, uint32_t hk0, uint32_t hk1,
-            uint32_t hk2, uint32_t hk3, uint32_t n0, uint32_t n1,
-            int rounds) {
-  ht_expand_kernel<L, FINAL><<<blocks, threads, 0, st>>>(
-      in, cw, cw_ls, (int4*)out, (int32_t*)low, count, hk0, hk1, hk2, hk3,
-      n0, n1, rounds);
-}
-
 }  // namespace
 
 // roots: [count, 4] nodes; cw_rows: `levels` key rows, row i at
@@ -118,45 +112,35 @@ void launch(unsigned blocks, int threads, cudaStream_t st,
 // row is the conversion level; out gets the leaves' high parts
 // [count << levels, 4] (clamped bit clear) and low [count << levels] their
 // low bits. hk0..hk3: the CCR hash key.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
 extern "C" int fss_ht_expand(const void* roots, const void* cw_rows,
                              int64_t cw_ls, void* out, void* low,
                              int64_t count, int levels, int final,
                              uint32_t hk0, uint32_t hk1, uint32_t hk2,
-                             uint32_t hk3, uint32_t n0, uint32_t n1,
-                             int rounds, void* stream) {
+                             uint32_t hk3, const void* prg, void* stream) {
   if (count <= 0) return 0;
   const int threads = 128;
   const unsigned blocks = (unsigned)((count + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* in = (const uint32_t*)roots;
   const uint32_t* cw = (const uint32_t*)cw_rows;
-  switch (levels * 2 + (final != 0)) {
-    case 2:
-      launch<1, false>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                       hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    case 3:
-      launch<1, true>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                      hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    case 4:
-      launch<2, false>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                       hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    case 5:
-      launch<2, true>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                      hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    case 6:
-      launch<3, false>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                       hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    case 7:
-      launch<3, true>(blocks, threads, st, in, cw, cw_ls, out, low, count,
-                      hk0, hk1, hk2, hk3, n0, n1, rounds);
-      break;
-    default:
+  return fss::with_prg<1>(prg, [&](auto p) {
+    using Prg = decltype(p);
+    if (levels < 1 || levels > fss::kMaxLevels<Prg>)
       return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+    auto kernel = final ? ht_expand_kernel<1, true, Prg>
+                        : ht_expand_kernel<1, false, Prg>;
+    if constexpr (fss::kMaxLevels<Prg> == 3) {
+      if (levels == 2)
+        kernel = final ? ht_expand_kernel<2, true, Prg>
+                       : ht_expand_kernel<2, false, Prg>;
+      if (levels == 3)
+        kernel = final ? ht_expand_kernel<3, true, Prg>
+                       : ht_expand_kernel<3, false, Prg>;
+    }
+    kernel<<<blocks, threads, 0, st>>>(in, cw, cw_ls, (int4*)out,
+                                       (int32_t*)low, count, hk0, hk1, hk2,
+                                       hk3, p);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,10 +1,12 @@
 // Batched Half-Tree DPF key generation: one thread per key runs both
 // parties' nodes down the path to alpha.
 //
-// Replaces fss_tpu/ops/ht_pallas.py:gen_packed (_make_gen_kernel). Nodes
-// start as SetLsb(s0, 0) and SetLsb(s1, 1). Per level (the reference's
-// corrected formulas, docs/design.md "Half-Tree correction words"): one
-// ChaCha mul=1 block of hash_key ^ node per party, the CW
+// Replaces fss_tpu/ops/ht_pallas.py:gen_packed (_make_gen_kernel) with the
+// ChaCha PRG; with AES-128-MMO it is the card's AES Half-Tree Gen, which the
+// JAX package runs as XLA (a template over the PRG, prg.cuh). Nodes start
+// as SetLsb(s0, 0) and SetLsb(s1, 1). Per level (the reference's corrected
+// formulas, docs/design.md "Half-Tree correction words"): one mul=1 block
+// of hash_key ^ node per party, the CW
 //   cw = h0 ^ h1 ^ (!a_bit ? node0 ^ node1 : 0)
 // over all 128 bits, and each party's node = h ^ (a_bit ? node : 0) ^
 // (t ? cw : 0). The last level hashes each node with its clamped bit set to
@@ -19,22 +21,25 @@
 // word 4, every other word 0. The group-typed output CW is torch glue on the
 // two leaves [B, 4] (ops/ht_cuda.py:gen_batch), as on the TPU.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. 2 (n-1) + 4 ChaCha
-// blocks of 960 ops a key against 32 bytes a row written; at 2^20 keys x
-// 16 bits, ~3.4e10 ops (~1.02 ms at 128 lanes x 132 SMs x 1.98 GHz) against
-// ~0.6 GB (~0.18 ms at 3.35 TB/s). Both nodes and the ChaCha state stay in
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. 2 (n-1) +
+// 4 ChaCha blocks of 960 ops a key against 32 bytes a row written; at 2^20
+// keys x 16 bits, ~3.4e10 ops (~1.02 ms at 128 lanes x 132 SMs x 1.98 GHz)
+// against ~0.6 GB (~0.18 ms at 3.35 TB/s). With AES the same blocks do 176
+// shared-memory lookups each, ~6.5e9 LDS (~0.78 ms at 32 a clock x 132 SMs
+// x 1.98 GHz before bank conflicts). Both nodes and the ChaCha state stay in
 // registers; each row goes out as two 16-byte stores.
 
 #include <cuda_runtime.h>
 
-#include "chacha.cuh"
+#include "prg.cuh"
 
 namespace {
 
-__device__ __forceinline__ void ccr_hash(const uint32_t node[4],
+template <class Prg>
+__device__ __forceinline__ void ccr_hash(const Prg& prg,
+                                         const uint32_t node[4],
                                          uint32_t lsb_clear, uint32_t lsb_set,
-                                         const uint32_t hk[4], uint32_t n0,
-                                         uint32_t n1, int rounds,
+                                         const uint32_t hk[4],
                                          uint32_t out[4]) {
   // H(hash_key ^ node'), node' = node with word 3 as (w3 & lsb_clear) |
   // lsb_set.
@@ -42,17 +47,18 @@ __device__ __forceinline__ void ccr_hash(const uint32_t node[4],
   out[1] = node[1] ^ hk[1];
   out[2] = node[2] ^ hk[2];
   out[3] = ((node[3] & lsb_clear) | lsb_set) ^ hk[3];
-  fss::chacha1(out, n0, n1, rounds, out);
+  prg.expand1(out, out);
 }
 
+template <class Prg>
 __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
                               const uint32_t* __restrict__ alphas,
                               int64_t a_ks, int4* __restrict__ cws,
                               int4* __restrict__ leaf0,
                               int4* __restrict__ leaf1, int64_t batch,
                               int in_bits, uint32_t hk0, uint32_t hk1,
-                              uint32_t hk2, uint32_t hk3, uint32_t n0,
-                              uint32_t n1, int rounds) {
+                              uint32_t hk2, uint32_t hk3, const Prg prg) {
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t hk[4] = {hk0, hk1, hk2, hk3};
@@ -66,8 +72,8 @@ __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
 
   for (int i = 0; i < in_bits - 1; ++i) {
     uint32_t h0[4], h1[4];
-    ccr_hash(m0, ~0u, 0u, hk, n0, n1, rounds, h0);
-    ccr_hash(m1, ~0u, 0u, hk, n0, n1, rounds, h1);
+    ccr_hash(prg, m0, ~0u, 0u, hk, h0);
+    ccr_hash(prg, m1, ~0u, 0u, hk, h1);
     const int pos = in_bits - 1 - i;
     const uint32_t ab = (__ldg(a + (pos >> 5)) >> (pos & 31)) & 1u;
     const uint32_t nam = ab - 1u;  // all ones where a_bit is 0
@@ -88,10 +94,10 @@ __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
   const uint32_t an = __ldg(a) & 1u, anm = 0u - an;
   const uint32_t t0m = 0u - (m0[3] & 1u), t1m = 0u - (m1[3] & 1u);
   uint32_t h00[4], h01[4], h10[4], h11[4];
-  ccr_hash(m0, ~1u, 0u, hk, n0, n1, rounds, h00);
-  ccr_hash(m0, ~1u, 1u, hk, n0, n1, rounds, h01);
-  ccr_hash(m1, ~1u, 0u, hk, n0, n1, rounds, h10);
-  ccr_hash(m1, ~1u, 1u, hk, n0, n1, rounds, h11);
+  ccr_hash(prg, m0, ~1u, 0u, hk, h00);
+  ccr_hash(prg, m0, ~1u, 1u, hk, h01);
+  ccr_hash(prg, m1, ~1u, 0u, hk, h10);
+  ccr_hash(prg, m1, ~1u, 1u, hk, h11);
   const uint32_t lcw0 = (h00[3] ^ h10[3] ^ an ^ 1u) & 1u;
   const uint32_t lcw1 = (h01[3] ^ h11[3] ^ an) & 1u;
   uint32_t hcw[4], l0[4], l1[4];
@@ -125,18 +131,19 @@ __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
 // for [B] with in_bits <= 32, 4 for [B, 4]).
 // cws: [B, in_bits, 8] wire rows, written whole.
 // leaf0, leaf1: [B, 4] the parties' corrected alpha-direction leaves.
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
 extern "C" int fss_ht_gen(const void* seeds, const void* alphas,
                           int64_t a_ks, void* cws, void* leaf0, void* leaf1,
                           int64_t batch, int in_bits, uint32_t hk0,
                           uint32_t hk1, uint32_t hk2, uint32_t hk3,
-                          uint32_t n0, uint32_t n1, int rounds,
-                          void* stream) {
+                          const void* prg, void* stream) {
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  ht_gen_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, (const uint32_t*)alphas, a_ks, (int4*)cws,
-      (int4*)leaf0, (int4*)leaf1, batch, in_bits, hk0, hk1, hk2, hk3, n0, n1,
-      rounds);
-  return (int)cudaGetLastError();
+  return fss::with_prg<1>(prg, [&](auto p) {
+    ht_gen_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seeds, (const uint32_t*)alphas, a_ks, (int4*)cws,
+        (int4*)leaf0, (int4*)leaf1, batch, in_bits, hk0, hk1, hk2, hk3, p);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,0 +1,112 @@
+// The kernels' PRGs as template parameters: ChaChaPrg (chacha.cuh) and
+// AesPrg<MUL> (aes.cuh). Each kernel is a template over the PRG type and
+// calls:
+//
+//   prg.init()                 before any thread leaves: AES fills its
+//                              shared tables (all threads, then a barrier);
+//                              ChaCha does nothing;
+//   prg.expand1(s, out)        the mul=1 block (the Half-Tree CCR hash);
+//   prg.expand2(s, l, r)       the mul=2 pair (DPF, VDPF);
+//   prg.expand4(s, o)          the mul=4 blocks (DCF).
+//
+// Outputs may alias the seed. A PRG object is a kernel parameter passed by
+// value: ChaCha's nonce and rounds, or AES's MUL x 44 round-key words (704
+// bytes at most), so a call allocates and copies nothing on the device.
+//
+// The host side of every extern "C" entry takes one `const void* prg`
+// pointing at a PrgArg in host memory (fss_tpu_torch/_build.py:prg_arg)
+// and picks the instantiation with with_prg<MUL>(prg, launch), where
+// `launch` is a generic lambda that launches the kernel for the PRG object
+// it is given.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "aes.cuh"
+#include "chacha.cuh"
+
+namespace fss {
+
+struct ChaChaPrg {
+  uint32_t n0, n1;
+  int rounds;
+
+  __device__ __forceinline__ void init() const {}
+  __device__ __forceinline__ void expand1(const uint32_t s[4],
+                                          uint32_t out[4]) const {
+    chacha1(s, n0, n1, rounds, out);
+  }
+  __device__ __forceinline__ void expand2(const uint32_t s[4], uint32_t l[4],
+                                          uint32_t r[4]) const {
+    chacha2(s, n0, n1, rounds, l, r);
+  }
+  __device__ __forceinline__ void expand4(const uint32_t s[4],
+                                          uint32_t o[4][4]) const {
+    chacha4(s, n0, n1, rounds, o);
+  }
+};
+
+template <int MUL>
+struct AesPrg {
+  uint32_t rk[MUL][44];  // big-endian round-key words of each key
+
+  __device__ __forceinline__ void init() const { aes_load_tables(); }
+  __device__ __forceinline__ void expand1(const uint32_t s[4],
+                                          uint32_t out[4]) const {
+    aes_mmo(rk[0], s, out);
+  }
+  __device__ __forceinline__ void expand2(const uint32_t s[4], uint32_t l[4],
+                                          uint32_t r[4]) const {
+    static_assert(MUL >= 2, "expand2 needs two keys");
+    const uint32_t x[4] = {s[0], s[1], s[2], s[3]};
+    aes_mmo(rk[0], x, l);
+    aes_mmo(rk[1], x, r);
+  }
+  __device__ __forceinline__ void expand4(const uint32_t s[4],
+                                          uint32_t o[4][4]) const {
+    static_assert(MUL == 4, "expand4 needs four keys");
+    const uint32_t x[4] = {s[0], s[1], s[2], s[3]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) aes_mmo(rk[j], x, o[j]);
+  }
+};
+
+// The most tree levels an EvalAll kernel expands in one launch with the
+// PRG (fss_tpu_torch/ops/eval_all_cuda.py:levels_per_launch). AES takes
+// one: its blocks are unrolled, so 2-3 levels (3-7 nodes, up to 28 blocks
+// a thread) take ptxas minutes a kernel, and an AES level is bound by its
+// table lookups, not by the round trip of the nodes through memory.
+template <class Prg>
+constexpr int kMaxLevels = 3;
+template <int MUL>
+constexpr int kMaxLevels<AesPrg<MUL>> = 1;
+
+// The host's PRG argument (fss_tpu_torch/_build.py:prg_arg).
+struct PrgArg {
+  uint32_t kind;  // kPrgChaCha or kPrgAes
+  uint32_t n0, n1, rounds;  // ChaCha
+  uint32_t rk[4][44];       // AES: the first MUL keys' round keys
+};
+constexpr uint32_t kPrgChaCha = 0, kPrgAes = 1;
+
+// Calls launch(prg object) with the PRG `arg` describes and returns what it
+// returns, or cudaErrorInvalidValue for an unknown kind.
+template <int MUL, class Launch>
+int with_prg(const void* arg, Launch&& launch) {
+  const PrgArg& a = *static_cast<const PrgArg*>(arg);
+  if (a.kind == kPrgChaCha) {
+    return launch(ChaChaPrg{a.n0, a.n1, (int)a.rounds});
+  }
+  if (a.kind == kPrgAes) {
+    AesPrg<MUL> p;
+    for (int j = 0; j < MUL; ++j)
+      for (int w = 0; w < 44; ++w) p.rk[j][w] = a.rk[j][w];
+    return launch(p);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace fss

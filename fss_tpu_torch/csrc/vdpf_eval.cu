@@ -2,8 +2,10 @@
 // hashes (x, leaf seed) in registers.
 //
 // Replaces fss_tpu/ops/vdpf_pallas.py:fused_eval_packed
-// (_make_fused_eval_kernel): the walk is fss::dpf_walk (dpf_walk.cuh, the
-// DPF eval kernel's own), and the leaf seed goes straight from registers
+// (_make_fused_eval_kernel) with the ChaCha PRG and, with AES-128-MMO,
+// fss_tpu/ops/aes_pallas.py:vdpf_eval_points (the AES walk chained with the
+// XorHash): the walk is fss::dpf_walk (dpf_walk.cuh, the DPF eval kernel's
+// own, a template over the PRG), and the leaf seed goes straight from registers
 // into the XorHash H(x, s) = two compressions with lane 3's LSB of x as 0
 // and 1. The hash is a template parameter: BLAKE3 (blake3.cuh, keyed with
 // 8 IV words) or SHA-256 (sha256.cuh, keyed with 4 words). The outputs are
@@ -11,7 +13,8 @@
 // t ? cs : 0 correction and the group finalize are torch glue, as in
 // vdpf_pallas.eval_points.
 //
-// Bound on the H100: 32-bit ALU instruction dispatch. At 16 levels a key
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch (with AES,
+// the walk's 352 shared-memory lookups a level). At 16 levels a key
 // does 16 x 960 ChaCha ops plus H's ~1,300 (BLAKE3) or ~2,400 (SHA-256)
 // ALU instructions, against ~380 bytes of key, x and outputs. The walk's
 // state is dead before the hash's starts, so the two share the registers;
@@ -33,7 +36,7 @@ struct HashKey {
   uint32_t w[8];  // BLAKE3: the IV; SHA-256: the key in w[0..3]
 };
 
-template <int kHash>
+template <int kHash, class Prg>
 __global__ void vdpf_eval_kernel(const uint32_t* __restrict__ seeds,
                                  int64_t seed_ks,
                                  const uint32_t* __restrict__ cws,
@@ -43,15 +46,16 @@ __global__ void vdpf_eval_kernel(const uint32_t* __restrict__ seeds,
                                  int32_t* __restrict__ t_out,
                                  int4* __restrict__ pi, int64_t batch,
                                  int in_bits, int party, HashKey hk_arg,
-                                 uint32_t n0, uint32_t n1, int rounds) {
+                                 const Prg prg) {
+  prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
   const uint32_t* sp = seeds + k * seed_ks;
   uint32_t s[4] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2),
                    __ldg(sp + 3) & ~1u};
   const uint32_t* x = xs + k * x_ks;
-  const uint32_t t = fss::dpf_walk(s, (uint32_t)party, cws + k * cw_ks, 8,
-                                   1, x, in_bits, n0, n1, rounds);
+  const uint32_t t = fss::dpf_walk(prg, s, (uint32_t)party, cws + k * cw_ks,
+                                   8, 1, x, in_bits);
   so[k] = make_int4((int)s[0], (int)s[1], (int)s[2], (int)s[3]);
   t_out[k] = (int32_t)t;
 
@@ -79,24 +83,28 @@ __global__ void vdpf_eval_kernel(const uint32_t* __restrict__ seeds,
 // 4); lane (pos >> 5) must exist. hash: 0 BLAKE3 (h0..h7 the IV), 1
 // SHA-256 (h0..h3 the key). so: [B, 4] leaf seeds (clamped bit clear);
 // t_out: [B] control bits; pi: [B, 4, 4] raw H(x, s).
+// prg: a host fss::PrgArg (ChaCha or AES-MMO with 2 keys).
 extern "C" int fss_vdpf_eval(const void* seeds, int64_t seed_ks,
                              const void* cws, int64_t cw_ks, const void* xs,
                              int64_t x_ks, void* so, void* t_out, void* pi,
                              int64_t batch, int in_bits, int party, int hash,
                              uint32_t h0, uint32_t h1, uint32_t h2,
                              uint32_t h3, uint32_t h4, uint32_t h5,
-                             uint32_t h6, uint32_t h7, uint32_t n0,
-                             uint32_t n1, int rounds, void* stream) {
+                             uint32_t h6, uint32_t h7, const void* prg,
+                             void* stream) {
   if (batch <= 0) return 0;
   if (hash != kBlake3 && hash != kSha256) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const unsigned blocks = (unsigned)((batch + threads - 1) / threads);
   const HashKey hk{{h0, h1, h2, h3, h4, h5, h6, h7}};
-  auto kernel = hash == kBlake3 ? vdpf_eval_kernel<kBlake3>
-                                : vdpf_eval_kernel<kSha256>;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
-      (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, (int4*)pi,
-      batch, in_bits, party, hk, n0, n1, rounds);
-  return (int)cudaGetLastError();
+  return fss::with_prg<2>(prg, [&](auto p) {
+    using Prg = decltype(p);
+    auto kernel = hash == kBlake3 ? vdpf_eval_kernel<kBlake3, Prg>
+                                  : vdpf_eval_kernel<kSha256, Prg>;
+    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
+        (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, (int4*)pi,
+        batch, in_bits, party, hk, p);
+    return (int)cudaGetLastError();
+  });
 }

@@ -5,7 +5,9 @@ jax arrays); the port's is int32 tensors with the same bits. This module
 converts seeds [..., 2, 4], wire keys [B, in_bits+1, 8], the JAX
 package's packed keys (cw planes [in_bits, 5, T, 128] + ocw [B, 4]) and
 DPF, DCF, Half-Tree and VDPF configurations described by plain values, in
-both directions. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
+both directions, with the ChaCha PRG (``nonce``, ``rounds``) or AES-128-MMO
+(``aes_keys``, hex). A JAX ``Aes128Mmo`` crosses with its ``backend`` and
+``unroll`` left behind: every backend computes the same bits. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
 arrays through :func:`to_torch` and :func:`to_numpy`, and VDPF keys (cws
 [B, in_bits, 8], cs [B, 4, 4], ocw [B, 4]) as three. Hash keys and IVs
 cross as plain ints. It
@@ -22,6 +24,7 @@ from fss_tpu_torch import groups
 from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, PackedDpfKeys, Vdpf
 from fss_tpu_torch.hash import Blake3, Sha256
 from fss_tpu_torch.ops.ht_cuda import hash_words
+from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
 
 LANES = 128  # key lanes per row of the JAX package's packed planes
@@ -59,11 +62,15 @@ def packed_keys_to_jax(keys: PackedDpfKeys):
 
 
 def dpf_config(in_bits: int, group, prg) -> dict:
-    """A DPF configuration as plain values, read from a group and a
-    ChaCha PRG of either package (Bytes has ``name == "bytes"``, Uint has
-    ``bits`` and ``mod``; the PRG has ``nonce`` and ``rounds``)."""
-    cfg = {"in_bits": int(in_bits), "group": group.name,
-           "nonce": [int(n) for n in prg.nonce], "rounds": int(prg.rounds)}
+    """A DPF configuration as plain values, read from a group and a PRG
+    of either package (Bytes has ``name == "bytes"``, Uint has ``bits`` and
+    ``mod``; a ChaCha PRG has ``nonce`` and ``rounds``, an AES-MMO PRG
+    ``keys``, 16 bytes each)."""
+    cfg = {"in_bits": int(in_bits), "group": group.name}
+    if hasattr(prg, "keys"):
+        cfg.update(prg="aes", aes_keys=[bytes(k).hex() for k in prg.keys])
+    else:
+        cfg.update(nonce=[int(n) for n in prg.nonce], rounds=int(prg.rounds))
     if group.name != "bytes":
         cfg.update(group="uint", bits=int(group.bits), mod=int(group.mod))
     return cfg
@@ -72,8 +79,11 @@ def dpf_config(in_bits: int, group, prg) -> dict:
 def _scheme_args(cfg: dict, mul: int) -> dict:
     group = (groups.Bytes() if cfg["group"] == "bytes"
              else groups.Uint(cfg["bits"], cfg.get("mod", 0)))
-    prg = ChaCha(mul=mul, nonce=tuple(cfg["nonce"]),
-                 rounds=cfg.get("rounds", 20))
+    if cfg.get("prg") == "aes":
+        prg = AesMmo(mul, [bytes.fromhex(k) for k in cfg["aes_keys"][:mul]])
+    else:
+        prg = ChaCha(mul=mul, nonce=tuple(cfg["nonce"]),
+                     rounds=cfg.get("rounds", 20))
     return {"group": group, "prg": prg}
 
 

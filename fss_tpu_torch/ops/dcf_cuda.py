@@ -1,9 +1,13 @@
 """Batched DCF point evaluation and Gen on the card: wrappers of the CUDA
 kernels ``csrc/dcf_eval.cu`` and ``csrc/dcf_gen.cu``.
 
-Counterpart of ``fss_tpu.ops.dcf_pallas``. The kernels replace
-``dcf_pallas.eval_packed`` and ``dcf_pallas.gen_packed``; each source file
-says what bounds it on the H100 and what its design does about that.
+Counterpart of ``fss_tpu.ops.dcf_pallas`` and of the DCF half of
+``fss_tpu.ops.aes_pallas``. The kernels replace ``dcf_pallas.eval_packed``
+and ``dcf_pallas.gen_packed`` with the ChaCha PRG, and
+``aes_pallas._dcf_eval_call`` and ``aes_pallas.dcf_gen_packed`` with
+AES-128-MMO: each wrapper takes the PRG object (``prg``, ChaCha or AesMmo
+with mul=4). Each source file says what bounds it on the H100 and what
+its design does about that.
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
@@ -38,7 +42,6 @@ from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.block import MASK32, i32, u64
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
-from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import dcf as _dcf
 
 MODES = ("xor", "wrap", "mod64", "mod128", "mod128np")  # fss::Mode order
@@ -48,12 +51,10 @@ NOT_ONE = MASK32 ^ 1
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.P, _build.INT, _build.P, _build.P,
               _build.P, _build.I64, _build.INT, _build.INT, _build.INT,
-              *(_build.U32,) * 4, _build.U32, _build.U32, _build.INT,
-              _build.P)
+              *(_build.U32,) * 4, _build.P, _build.P)
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
              _build.I64, _build.INT, _build.INT, _build.INT,
-             *(_build.U32,) * 8, _build.U32, _build.U32, _build.INT,
-             _build.P)
+             *(_build.U32,) * 8, _build.P, _build.P)
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +220,10 @@ def _check_eval(s0, cws, xs, in_bits, party, group_mode):
 
 
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
-                in_bits: int, party: int, nonce, group_mode: str = "wrap",
-                vmask=FULL, rounds: int = 20):
-    """The DCF tree walk for a batch of keys.
+                in_bits: int, party: int, prg, group_mode: str = "wrap",
+                vmask=FULL):
+    """The DCF tree walk for a batch of keys, with ``prg`` (ChaCha or
+    AesMmo, mul=4).
 
     s0: [B, 4] seeds or one [4] seed; cws: wire rows [B, in_bits+1, 8] or
     one key [in_bits+1, 8]; xs: [B], or [B, 4] lanes (required for
@@ -231,48 +233,48 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
     control bits).
     """
     dev = _check_eval(s0, cws, xs, in_bits, party, group_mode)
+    arg, tag = _build.prg_arg(prg, 4)
     if dev.type == "cpu":
-        return eval_packed_plain(s0, cws, xs, in_bits, party, nonce,
-                                 group_mode, vmask, rounds)
+        return eval_packed_plain(s0, cws, xs, in_bits, party, prg,
+                                 group_mode, vmask)
     B = xs.shape[0]
     vo = torch.empty((B, acc_words(group_mode)), dtype=torch.int32,
                      device=dev)
     so = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t = torch.empty((B,), dtype=torch.int32, device=dev)
-    prg = ChaCha(4, nonce, rounds)  # validates rounds, masks the nonce
     fn = _build.function("dcf_eval", "fss_dcf_eval", _EVAL_ARGS)
     _build.launch(
         "dcf_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
         cws.data_ptr(), 8, 1, (in_bits + 1) * 8 if cws.dim() == 3 else 0,
         xs.data_ptr(), int(xs.dim() == 2), vo.data_ptr(), so.data_ptr(),
         t.data_ptr(), B, in_bits, int(party), MODES.index(group_mode),
-        *(int(m) & MASK32 for m in vmask), *prg.nonce, prg.rounds,
-        device=dev)
+        *(int(m) & MASK32 for m in vmask), arg, device=dev,
+        kernel="dcf_eval" + tag)
     return vo, so, t
 
 
-def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce,
-                      group_mode: str = "wrap", vmask=FULL,
-                      rounds: int = 20):
+def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
+                      group_mode: str = "wrap", vmask=FULL):
     """Plain PyTorch version of :func:`eval_packed` (same inputs, same
     outputs), on any device."""
     _check_eval(s0, cws, xs, in_bits, party, group_mode)
+    _build.check_prg(prg, 4)
     B = xs.shape[0]
     wide = cws.expand(B, in_bits + 1, 8)
     acc = torch.zeros((B, acc_words(group_mode)), dtype=torch.int64,
                       device=xs.device)
-    s, t, acc = _dcf.walk(ChaCha(4, nonce, rounds), in_bits, party,
+    s, t, acc = _dcf.walk(prg, in_bits, party,
                           s0.expand(B, 4), lambda i: wide[:, i],
                           blk.input_bits_msb_first(_x_lanes(xs), in_bits),
                           acc, accumulator(group_mode, vmask))
     return i32(acc), s, t
 
 
-def eval_points(prg_nonce, group, in_bits: int, party: int, s0, cws, xs,
-                rounds: int = 20) -> torch.Tensor:
+def eval_points(prg, group, in_bits: int, party: int, s0, cws,
+                xs) -> torch.Tensor:
     """Point evaluation against wire keys: kernel walk + finalize."""
-    vo, so, t = eval_packed(s0, cws, xs, in_bits, party, prg_nonce,
-                            group_mode(group), value_mask(group), rounds)
+    vo, so, t = eval_packed(s0, cws, xs, in_bits, party, prg,
+                            group_mode(group), value_mask(group))
     return finalize(group, party, vo, so, t, cws[..., in_bits, 4:8])
 
 
@@ -294,40 +296,39 @@ def _check_gen(s0s, alphas, betas, in_bits, pred):
 
 
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
-               in_bits: int, nonce, pred: str, group,
-               rounds: int = 20) -> torch.Tensor:
-    """Every level of DCF Gen, and the final value CW, for a batch of keys.
+               in_bits: int, prg, pred: str, group) -> torch.Tensor:
+    """Every level of DCF Gen, and the final value CW, for a batch of keys,
+    with ``prg`` (ChaCha or AesMmo, mul=4).
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
     in_bits > 32); betas [B, 4]. Returns wire rows cws [B, in_bits+1, 8].
     """
     dev = _check_gen(s0s, alphas, betas, in_bits, pred)
+    arg, tag = _build.prg_arg(prg, 4)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, betas, in_bits, nonce, pred,
-                                group, rounds)
+        return gen_packed_plain(s0s, alphas, betas, in_bits, prg, pred,
+                                group)
     B = s0s.shape[0]
     cws = torch.empty((B, in_bits + 1, 8), dtype=torch.int32, device=dev)
     mask, mod = gen_params(group)
-    prg = ChaCha(4, nonce, rounds)
     fn = _build.function("dcf_gen", "fss_dcf_gen", _GEN_ARGS)
     _build.launch(
         "dcf_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
         4 if alphas.dim() == 2 else 1, betas.data_ptr(), cws.data_ptr(), B,
         in_bits, int(pred == "lt"), MODES.index(group_mode(group)), *mask,
-        *mod, *prg.nonce, prg.rounds, device=dev)
+        *mod, arg, device=dev, kernel="dcf_gen" + tag)
     return cws
 
 
-def gen_packed_plain(s0s, alphas, betas, in_bits: int, nonce, pred: str,
-                     group, rounds: int = 20) -> torch.Tensor:
+def gen_packed_plain(s0s, alphas, betas, in_bits: int, prg, pred: str,
+                     group) -> torch.Tensor:
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
     _check_gen(s0s, alphas, betas, in_bits, pred)
-    return _dcf.gen(ChaCha(4, nonce, rounds), group, in_bits, pred, s0s,
-                    _x_lanes(alphas), betas)
+    _build.check_prg(prg, 4)
+    return _dcf.gen(prg, group, in_bits, pred, s0s, _x_lanes(alphas), betas)
 
 
-def gen_batch(prg_nonce, group, in_bits: int, pred: str, s0s, alphas,
-              betas, rounds: int = 20) -> torch.Tensor:
+def gen_batch(prg, group, in_bits: int, pred: str, s0s, alphas,
+              betas) -> torch.Tensor:
     """Batched Gen into wire rows [B, in_bits+1, 8]."""
-    return gen_packed(s0s, alphas, betas, in_bits, prg_nonce, pred, group,
-                      rounds)
+    return gen_packed(s0s, alphas, betas, in_bits, prg, pred, group)

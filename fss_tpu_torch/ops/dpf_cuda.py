@@ -1,9 +1,13 @@
 """Batched DPF point evaluation and Gen on the card: wrappers of the CUDA
 kernels ``csrc/dpf_eval.cu`` and ``csrc/dpf_gen.cu``.
 
-Counterpart of ``fss_tpu.ops.dpf_pallas``. The kernels replace
-``dpf_pallas.eval_packed`` and ``dpf_pallas.gen_packed``; each source file
-says what bounds it on the H100 and what its design does about that.
+Counterpart of ``fss_tpu.ops.dpf_pallas`` and of the DPF half of
+``fss_tpu.ops.aes_pallas``. The kernels replace ``dpf_pallas.eval_packed``
+and ``dpf_pallas.gen_packed`` with the ChaCha PRG, and
+``aes_pallas.eval_packed`` and ``aes_pallas.gen_packed`` with AES-128-MMO:
+each wrapper takes the PRG object (``prg``, ChaCha or AesMmo with mul=2),
+and the kernel's instantiation follows it. Each source file says what
+bounds it on the H100 and what its design does about that.
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
@@ -27,16 +31,14 @@ import torch
 
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
-from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import dpf as _dpf
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.P, _build.I64, _build.P, _build.P,
-              _build.I64, _build.INT, _build.INT, _build.U32, _build.U32,
-              _build.INT, _build.P)
+              _build.I64, _build.INT, _build.INT, _build.P, _build.P)
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.INT,
              _build.INT, _build.P, _build.P, _build.P, _build.P, _build.I64,
-             _build.INT, _build.U32, _build.U32, _build.INT, _build.P)
+             _build.INT, _build.P, _build.P)
 
 
 def _device(*tensors) -> torch.device:
@@ -73,9 +75,9 @@ def _check_eval(s0, cws, xs, in_bits, party, packed):
 
 
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
-                in_bits: int, party: int, nonce, rounds: int = 20,
-                packed: bool = False):
-    """The DPF tree walk for a batch of keys.
+                in_bits: int, party: int, prg, packed: bool = False):
+    """The DPF tree walk for a batch of keys, with ``prg`` (ChaCha or
+    AesMmo, mul=2).
 
     s0: [B, 4] seeds or one [4] seed; cws: wire rows [B, in_bits+1, 8] or
     one key [in_bits+1, 8] (``packed=False``), or planes [in_bits, 5, B]
@@ -84,9 +86,9 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
     clamped bit clear, t [B] control bits).
     """
     dev = _check_eval(s0, cws, xs, in_bits, party, packed)
+    arg, tag = _build.prg_arg(prg, 2)
     if dev.type == "cpu":
-        return eval_packed_plain(s0, cws, xs, in_bits, party, nonce, rounds,
-                                 packed)
+        return eval_packed_plain(s0, cws, xs, in_bits, party, prg, packed)
     B = xs.shape[0]
     so = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -94,21 +96,21 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
         strides = (5 * B, B, 1)
     else:
         strides = (8, 1, (in_bits + 1) * 8 if cws.dim() == 3 else 0)
-    prg = ChaCha(2, nonce, rounds)  # validates rounds, masks the nonce
     fn = _build.function("dpf_eval", "fss_dpf_eval", _EVAL_ARGS)
     _build.launch(
         "dpf_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
         cws.data_ptr(), *strides, xs.data_ptr(), 4 if xs.dim() == 2 else 1,
-        so.data_ptr(), t.data_ptr(), B, in_bits, int(party), *prg.nonce,
-        prg.rounds, device=dev)
+        so.data_ptr(), t.data_ptr(), B, in_bits, int(party), arg,
+        device=dev, kernel="dpf_eval" + tag)
     return so, t
 
 
-def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce,
-                      rounds: int = 20, packed: bool = False):
+def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
+                      packed: bool = False):
     """Plain PyTorch version of :func:`eval_packed` (same inputs, same
     outputs), on any device."""
     _check_eval(s0, cws, xs, in_bits, party, packed)
+    _build.check_prg(prg, 2)
     B = xs.shape[0]
     if packed:
         def cw_level(i):
@@ -119,8 +121,7 @@ def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce,
         def cw_level(i):
             return wide[:, i]
     x_bits = blk.input_bits_msb_first(_x_lanes(xs), in_bits)
-    return _dpf.walk(ChaCha(2, nonce, rounds), in_bits, party,
-                     s0.expand(B, 4), cw_level, x_bits)
+    return _dpf.walk(prg, in_bits, party, s0.expand(B, 4), cw_level, x_bits)
 
 
 def finalize(group, party: int, so: torch.Tensor, t: torch.Tensor,
@@ -129,19 +130,18 @@ def finalize(group, party: int, so: torch.Tensor, t: torch.Tensor,
     return _dpf.finalize_leaves(group, party, so, t, ocw)
 
 
-def eval_points(prg_nonce, group, in_bits: int, party: int, s0, cws, xs,
-                rounds: int = 20) -> torch.Tensor:
+def eval_points(prg, group, in_bits: int, party: int, s0, cws,
+                xs) -> torch.Tensor:
     """Point evaluation against wire keys: kernel walk + finalize."""
-    so, t = eval_packed(s0, cws, xs, in_bits, party, prg_nonce, rounds)
+    so, t = eval_packed(s0, cws, xs, in_bits, party, prg)
     return finalize(group, party, so, t, cws[..., in_bits, 0:4])
 
 
-def eval_points_packedkey(prg_nonce, group, in_bits: int, party: int, s0,
-                          cws_p, ocw, xs, rounds: int = 20) -> torch.Tensor:
+def eval_points_packedkey(prg, group, in_bits: int, party: int, s0, cws_p,
+                          ocw, xs) -> torch.Tensor:
     """Point evaluation against a packed key: planes [in_bits, 5, B] and
     ocw [B, 4]. Bit-exact with the wire path."""
-    so, t = eval_packed(s0, cws_p, xs, in_bits, party, prg_nonce, rounds,
-                        packed=True)
+    so, t = eval_packed(s0, cws_p, xs, in_bits, party, prg, packed=True)
     return finalize(group, party, so, t, ocw)
 
 
@@ -178,9 +178,10 @@ def _check_gen(s0s, alphas, in_bits):
     return dev
 
 
-def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, nonce,
-               rounds: int = 20, layout: str = "wire", ocw_row: bool = True):
-    """All levels of BGI Gen for a batch of keys.
+def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, prg,
+               layout: str = "wire", ocw_row: bool = True):
+    """All levels of BGI Gen for a batch of keys, with ``prg`` (ChaCha or
+    AesMmo, mul=2).
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
     in_bits > 32). Returns (cws, s0f [B, 4], s1f [B, 4], t0 [B], t1 [B]):
@@ -192,9 +193,9 @@ def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, nonce,
     if layout not in ("wire", "packed"):
         raise ValueError(f"layout must be 'wire' or 'packed', got {layout}")
     dev = _check_gen(s0s, alphas, in_bits)
+    arg, tag = _build.prg_arg(prg, 2)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, in_bits, nonce, rounds, layout,
-                                ocw_row)
+        return gen_packed_plain(s0s, alphas, in_bits, prg, layout, ocw_row)
     B = s0s.shape[0]
     rows = in_bits + int(ocw_row)
     shape = (B, rows, 8) if layout == "wire" else (in_bits, 5, B)
@@ -203,24 +204,23 @@ def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, nonce,
     s1f = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t0 = torch.empty((B,), dtype=torch.int32, device=dev)
     t1 = torch.empty((B,), dtype=torch.int32, device=dev)
-    prg = ChaCha(2, nonce, rounds)
     fn = _build.function("dpf_gen", "fss_dpf_gen", _GEN_ARGS)
     _build.launch(
         "dpf_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
         4 if alphas.dim() == 2 else 1, cws.data_ptr(),
         int(layout == "wire"), rows, s0f.data_ptr(), s1f.data_ptr(),
-        t0.data_ptr(), t1.data_ptr(), B, in_bits, *prg.nonce, prg.rounds,
-        device=dev)
+        t0.data_ptr(), t1.data_ptr(), B, in_bits, arg, device=dev,
+        kernel="dpf_gen" + tag)
     return cws, s0f, s1f, t0, t1
 
 
-def gen_packed_plain(s0s, alphas, in_bits: int, nonce, rounds: int = 20,
-                     layout: str = "wire", ocw_row: bool = True):
+def gen_packed_plain(s0s, alphas, in_bits: int, prg, layout: str = "wire",
+                     ocw_row: bool = True):
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
     _check_gen(s0s, alphas, in_bits)
+    _build.check_prg(prg, 2)
     a_bits = blk.input_bits_msb_first(_x_lanes(alphas), in_bits)
-    rows, s0, s1, t0, t1 = _dpf.gen_levels(ChaCha(2, nonce, rounds),
-                                           in_bits, s0s, a_bits)
+    rows, s0, s1, t0, t1 = _dpf.gen_levels(prg, in_bits, s0s, a_bits)
     planes = torch.stack(rows, dim=0).permute(0, 2, 1).contiguous()
     if layout == "packed":
         return planes, s0, s1, t0, t1
@@ -235,20 +235,18 @@ def output_cw(group, s0f, s1f, t1, betas) -> torch.Tensor:
     return _dpf.output_cw(group, s0f, s1f, t1, betas)
 
 
-def gen_batch(prg_nonce, group, in_bits: int, s0s, alphas, betas,
-              rounds: int = 20) -> torch.Tensor:
+def gen_batch(prg, group, in_bits: int, s0s, alphas,
+              betas) -> torch.Tensor:
     """Batched Gen into wire rows [B, in_bits+1, 8]; the output CW is
     written in place into the kernel's zeroed last row."""
-    cws, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg_nonce,
-                                      rounds, "wire")
+    cws, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg, "wire")
     cws[:, in_bits, :4] = output_cw(group, s0f, s1f, t1, betas)
     return cws
 
 
-def gen_batch_packed(prg_nonce, group, in_bits: int, s0s, alphas, betas,
-                     rounds: int = 20):
+def gen_batch_packed(prg, group, in_bits: int, s0s, alphas, betas):
     """Batched Gen into the packed key layout: (planes [in_bits, 5, B],
     ocw [B, 4])."""
-    cws_p, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg_nonce,
-                                        rounds, "packed")
+    cws_p, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg,
+                                        "packed")
     return cws_p, output_cw(group, s0f, s1f, t1, betas)

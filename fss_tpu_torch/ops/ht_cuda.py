@@ -1,9 +1,14 @@
 """Batched Half-Tree DPF point evaluation and Gen on the card: wrappers of
 the CUDA kernels ``csrc/ht_eval.cu`` and ``csrc/ht_gen.cu``.
 
-Counterpart of ``fss_tpu.ops.ht_pallas``. The kernels replace
-``ht_pallas.eval_packed`` and ``ht_pallas.gen_packed``; each source file
-says what bounds it on the H100 and what its design does about that.
+Counterpart of ``fss_tpu.ops.ht_pallas`` and of
+``fss_tpu.ops.aes_pallas.ht_eval_packed``. The kernels replace
+``ht_pallas.eval_packed`` and ``ht_pallas.gen_packed`` with the ChaCha
+PRG, and ``aes_pallas.ht_eval_packed`` with AES-128-MMO (the JAX package
+has no AES Half-Tree Gen kernel; here it is the AES instantiation of the
+Gen kernel): each wrapper takes the PRG object (``prg``, ChaCha or AesMmo
+with mul=1). Each source file says what bounds it on the H100 and what
+its design does about that.
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
@@ -12,9 +17,9 @@ function and is what the CPU tests and the card's kernel checks compare
 with. Group conversion (the DPF's ``finalize_leaves`` and ``output_cw``)
 is elementwise glue outside the kernels, as in the JAX package.
 
-The CCR hash key and the PRG nonce reach the kernels as uint32 arguments
-(the TPU kernels bake them in as constants), so a new key needs no
-rebuild. Keys are wire rows [B, in_bits, 8], which the Eval kernel reads
+The CCR hash key and the PRG's nonce or round keys reach the kernels as
+arguments (the TPU kernels bake them in as constants), so a new key needs
+no rebuild. Keys are wire rows [B, in_bits, 8], which the Eval kernel reads
 in place through strides, or one broadcast key [in_bits, 8]; the output
 CW is [B, 4] or one [4]. Both kernels take every ``in_bits`` in 1..128,
 with x and alpha as 1 lane (in_bits <= 32) or 4.
@@ -28,17 +33,14 @@ import torch
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
-from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import dpf as _dpf
 from fss_tpu_torch.schemes import half_tree_dpf as _ht
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.P,
               _build.I64, _build.P, _build.P, _build.I64, _build.INT,
-              _build.INT, *(_build.U32,) * 4, _build.U32, _build.U32,
-              _build.INT, _build.P)
+              _build.INT, *(_build.U32,) * 4, _build.P, _build.P)
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P, _build.P,
-             _build.I64, _build.INT, *(_build.U32,) * 4, _build.U32,
-             _build.U32, _build.INT, _build.P)
+             _build.I64, _build.INT, *(_build.U32,) * 4, _build.P, _build.P)
 
 
 def hash_words(hash_key) -> tuple:
@@ -76,9 +78,9 @@ def _check_eval(s0, cws, xs, in_bits, party):
 
 
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
-                in_bits: int, party: int, nonce, hash_key,
-                rounds: int = 20):
-    """The Half-Tree walk and last-level conversion for a batch of keys.
+                in_bits: int, party: int, prg, hash_key):
+    """The Half-Tree walk and last-level conversion for a batch of keys,
+    with ``prg`` (ChaCha or AesMmo, mul=1) as the CCR hash.
 
     s0: [B, 4] seeds or one [4] seed; cws: wire rows [B, in_bits, 8] or
     one key [in_bits, 8]; xs: [B], or [B, 4] lanes (required for
@@ -86,44 +88,42 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
     clear, low [B]): the corrected leaf, before the group finalize.
     """
     dev = _check_eval(s0, cws, xs, in_bits, party)
+    arg, tag = _build.prg_arg(prg, 1)
     if dev.type == "cpu":
-        return eval_packed_plain(s0, cws, xs, in_bits, party, nonce,
-                                 hash_key, rounds)
+        return eval_packed_plain(s0, cws, xs, in_bits, party, prg, hash_key)
     B = xs.shape[0]
     high = torch.empty((B, 4), dtype=torch.int32, device=dev)
     low = torch.empty((B,), dtype=torch.int32, device=dev)
-    prg = ChaCha(1, nonce, rounds)  # validates rounds, masks the nonce
     fn = _build.function("ht_eval", "fss_ht_eval", _EVAL_ARGS)
     _build.launch(
         "ht_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
         cws.data_ptr(), in_bits * 8 if cws.dim() == 3 else 0, xs.data_ptr(),
         4 if xs.dim() == 2 else 1, high.data_ptr(), low.data_ptr(), B,
-        in_bits, int(party), *hash_words(hash_key), *prg.nonce, prg.rounds,
-        device=dev)
+        in_bits, int(party), *hash_words(hash_key), arg, device=dev,
+        kernel="ht_eval" + tag)
     return high, low
 
 
-def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce,
-                      hash_key, rounds: int = 20):
+def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
+                      hash_key):
     """Plain PyTorch version of :func:`eval_packed` (same inputs, same
     outputs), on any device."""
     _check_eval(s0, cws, xs, in_bits, party)
+    _build.check_prg(prg, 1)
     B = xs.shape[0]
     wide = cws.expand(B, in_bits, 8)
     x_bits = blk.input_bits_msb_first(_x_lanes(xs), in_bits)
-    prg1 = ChaCha(1, nonce, rounds)
     hk = hash_block(hash_key, xs.device)
-    node = _ht.walk(prg1, in_bits, party, hk, s0.expand(B, 4),
+    node = _ht.walk(prg, in_bits, party, hk, s0.expand(B, 4),
                     lambda i: wide[:, i, 0:4], x_bits)
-    return _ht.convert_at(prg1, hk, node, x_bits[:, in_bits - 1],
+    return _ht.convert_at(prg, hk, node, x_bits[:, in_bits - 1],
                           wide[:, in_bits - 1])
 
 
-def eval_points(prg_nonce, group, in_bits: int, party: int, hash_key, s0,
-                cws, ocw, xs, rounds: int = 20) -> torch.Tensor:
+def eval_points(prg, group, in_bits: int, party: int, hash_key, s0, cws,
+                ocw, xs) -> torch.Tensor:
     """Point evaluation: kernel walk + the DPF's group finalize."""
-    high, low = eval_packed(s0, cws, xs, in_bits, party, prg_nonce,
-                            hash_key, rounds)
+    high, low = eval_packed(s0, cws, xs, in_bits, party, prg, hash_key)
     return _dpf.finalize_leaves(group, party, high, low, ocw)
 
 
@@ -141,9 +141,10 @@ def _check_gen(s0s, alphas, in_bits):
     return dev
 
 
-def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int,
-               nonce, hash_key, rounds: int = 20):
-    """Every level of Half-Tree Gen for a batch of keys.
+def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, prg,
+               hash_key):
+    """Every level of Half-Tree Gen for a batch of keys, with ``prg``
+    (ChaCha or AesMmo, mul=1) as the CCR hash.
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
     in_bits > 32). Returns (cws [B, in_bits, 8] whole wire rows, leaf0
@@ -151,35 +152,31 @@ def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int,
     direction, from which :func:`gen_batch` makes the output CW.
     """
     dev = _check_gen(s0s, alphas, in_bits)
+    arg, tag = _build.prg_arg(prg, 1)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, in_bits, nonce, hash_key,
-                                rounds)
+        return gen_packed_plain(s0s, alphas, in_bits, prg, hash_key)
     B = s0s.shape[0]
     cws = torch.empty((B, in_bits, 8), dtype=torch.int32, device=dev)
     leaf0 = torch.empty((B, 4), dtype=torch.int32, device=dev)
     leaf1 = torch.empty((B, 4), dtype=torch.int32, device=dev)
-    prg = ChaCha(1, nonce, rounds)
     fn = _build.function("ht_gen", "fss_ht_gen", _GEN_ARGS)
     _build.launch(
         "ht_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
         4 if alphas.dim() == 2 else 1, cws.data_ptr(), leaf0.data_ptr(),
-        leaf1.data_ptr(), B, in_bits, *hash_words(hash_key), *prg.nonce,
-        prg.rounds, device=dev)
+        leaf1.data_ptr(), B, in_bits, *hash_words(hash_key), arg,
+        device=dev, kernel="ht_gen" + tag)
     return cws, leaf0, leaf1
 
 
-def gen_packed_plain(s0s, alphas, in_bits: int, nonce, hash_key,
-                     rounds: int = 20):
+def gen_packed_plain(s0s, alphas, in_bits: int, prg, hash_key):
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
     _check_gen(s0s, alphas, in_bits)
-    return _ht.gen_keys(ChaCha(1, nonce, rounds), in_bits,
-                        hash_block(hash_key, s0s.device), s0s,
+    _build.check_prg(prg, 1)
+    return _ht.gen_keys(prg, in_bits, hash_block(hash_key, s0s.device), s0s,
                         blk.input_bits_msb_first(_x_lanes(alphas), in_bits))
 
 
-def gen_batch(prg_nonce, group, in_bits: int, hash_key, s0s, alphas, betas,
-              rounds: int = 20):
+def gen_batch(prg, group, in_bits: int, hash_key, s0s, alphas, betas):
     """Batched Gen: (cws [B, in_bits, 8], ocw [B, 4])."""
-    cws, leaf0, leaf1 = gen_packed(s0s, alphas, in_bits, prg_nonce,
-                                   hash_key, rounds)
+    cws, leaf0, leaf1 = gen_packed(s0s, alphas, in_bits, prg, hash_key)
     return cws, _ht.output_cw(group, leaf0, leaf1, betas)

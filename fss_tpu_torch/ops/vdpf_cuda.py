@@ -2,7 +2,10 @@
 kernel ``csrc/vdpf_eval.cu``, the DPF Gen kernel and the hash kernels.
 
 Counterpart of ``fss_tpu.ops.vdpf_pallas``. The kernel replaces
-``vdpf_pallas.fused_eval_packed``: one thread a key walks the DPF tree
+``vdpf_pallas.fused_eval_packed`` with the ChaCha PRG and
+``aes_pallas.vdpf_eval_points`` (the AES walk chained with the XorHash)
+with AES-128-MMO; each wrapper takes the PRG object (``prg``, ChaCha or
+AesMmo with mul=2): one thread a key walks the DPF tree
 (``csrc/dpf_walk.cuh``, the DPF eval kernel's walk) and hashes
 (x, leaf seed) in registers, with the hash a template parameter. The
 t ? cs : 0 correction and the group finalize stay torch glue, as in
@@ -27,14 +30,13 @@ from fss_tpu_torch import block as blk
 from fss_tpu_torch.hash import Blake3, Sha256
 from fss_tpu_torch.ops import blake3_cuda, dpf_cuda, sha256_cuda
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
-from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import dpf as _dpf
 from fss_tpu_torch.schemes import vdpf as _vdpf
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.P,
               _build.I64, _build.P, _build.P, _build.P, _build.I64,
               _build.INT, _build.INT, _build.INT, *(_build.U32,) * 8,
-              _build.U32, _build.U32, _build.INT, _build.P)
+              _build.P, _build.P)
 _BLAKE3, _SHA256 = 0, 1
 
 
@@ -138,8 +140,9 @@ def _check_eval(s0, cws, xs, in_bits, party):
 
 
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
-                in_bits: int, party: int, nonce, hashes, rounds: int = 20):
-    """The DPF walk and the XorHash of (x, leaf seed) for a batch of keys.
+                in_bits: int, party: int, prg, hashes):
+    """The DPF walk with ``prg`` (ChaCha or AesMmo, mul=2) and the XorHash
+    of (x, leaf seed) for a batch of keys.
 
     s0: [B, 4] seeds or one [4] seed; cws: VDPF wire rows [B, in_bits, 8]
     or one key [in_bits, 8]; xs: [B], or [B, 4] lanes (required for
@@ -149,45 +152,43 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
     """
     dev = _check_eval(s0, cws, xs, in_bits, party)
     kind = hash_kind(hashes, dev)
+    arg, tag = _build.prg_arg(prg, 2)
     if dev.type == "cpu":
-        return eval_packed_plain(s0, cws, xs, in_bits, party, nonce, hashes,
-                                 rounds)
+        return eval_packed_plain(s0, cws, xs, in_bits, party, prg, hashes)
     B = xs.shape[0]
     so = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t = torch.empty((B,), dtype=torch.int32, device=dev)
     pi = torch.empty((B, 4, 4), dtype=torch.int32, device=dev)
-    prg = ChaCha(2, nonce, rounds)  # validates rounds, masks the nonce
     fn = _build.function("vdpf_eval", "fss_vdpf_eval", _EVAL_ARGS)
     _build.launch(
         "vdpf_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
         cws.data_ptr(), in_bits * 8 if cws.dim() == 3 else 0, xs.data_ptr(),
         4 if xs.dim() == 2 else 1, so.data_ptr(), t.data_ptr(),
         pi.data_ptr(), B, in_bits, int(party), kind, *_hash_args(hashes),
-        *prg.nonce, prg.rounds, device=dev)
+        arg, device=dev, kernel="vdpf_eval" + tag)
     return so, t, pi
 
 
-def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, nonce, hashes,
-                      rounds: int = 20):
+def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg, hashes):
     """Plain PyTorch version of :func:`eval_packed`, on any device: the
     DPF's plain walk and the hash's plain version."""
     _check_eval(s0, cws, xs, in_bits, party)
+    _build.check_prg(prg, 2)
     B = xs.shape[0]
     wide = cws.expand(B, in_bits, 8)
     x = _x_lanes(xs)
-    so, t = _dpf.walk(ChaCha(2, nonce, rounds), in_bits, party,
-                      s0.expand(B, 4), lambda i: wide[:, i],
+    so, t = _dpf.walk(prg, in_bits, party, s0.expand(B, 4),
+                      lambda i: wide[:, i],
                       blk.input_bits_msb_first(x, in_bits))
     return so, t, xor_hash_plain(hashes, x, so)
 
 
-def eval_points(prg_nonce, hashes, group, in_bits: int, party: int, s0,
-                cws, cs, ocw, xs, rounds: int = 20):
+def eval_points(prg, hashes, group, in_bits: int, party: int, s0, cws, cs,
+                ocw, xs):
     """Point evaluation: the kernel's walk and hash, then the correction
     and the DPF's group finalize. Returns (ys [B, 4], pi_tildes
     [B, 4, 4])."""
-    so, t, pi = eval_packed(s0, cws, xs, in_bits, party, prg_nonce, hashes,
-                            rounds)
+    so, t, pi = eval_packed(s0, cws, xs, in_bits, party, prg, hashes)
     ys = _dpf.finalize_leaves(group, party, so, t, ocw)
     return ys, _vdpf.correct_(pi, t, cs)
 
@@ -196,8 +197,7 @@ def eval_points(prg_nonce, hashes, group, in_bits: int, party: int, s0,
 # Gen
 # ---------------------------------------------------------------------------
 
-def gen_batch(prg_nonce, hashes, group, in_bits: int, s0s, alphas, betas,
-              rounds: int = 20):
+def gen_batch(prg, hashes, group, in_bits: int, s0s, alphas, betas):
     """Batched Gen: the DPF Gen kernel's levels into VDPF wire rows, then
     cs through the XorHash kernel, the fail mask and the output CW.
 
@@ -205,8 +205,8 @@ def gen_batch(prg_nonce, hashes, group, in_bits: int, s0s, alphas, betas,
     in_bits > 32); betas [B, 4]. Returns (cws [B, in_bits, 8], cs
     [B, 4, 4], ocw [B, 4], fail [B]).
     """
-    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(
-        s0s, alphas, in_bits, prg_nonce, rounds, "wire", ocw_row=False)
+    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(s0s, alphas, in_bits, prg,
+                                                "wire", ocw_row=False)
     return (cws, *_vdpf.finish_gen(
         lambda a, b: xor_hash(hashes, a, b), group,
         _x_lanes(alphas).contiguous(), s0f, s1f, t0, t1, betas))

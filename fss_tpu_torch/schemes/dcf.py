@@ -5,8 +5,8 @@ Counterpart of ``fss_tpu.schemes.dcf``, batched over a leading key axis
 with a Python loop over tree levels. Bit-exact with the reference: keys
 generated from the same seeds give the same correction words, and Eval and
 EvalAll the same output shares. The DCF threads a running group value ``v``
-alongside the GGM tree walk; its PRG (ChaCha mul=4) expands each seed into
-4 blocks (s_l, v_l, s_r, v_r).
+alongside the GGM tree walk; its PRG (ChaCha or AES-MMO, mul=4) expands
+each seed into 4 blocks (s_l, v_l, s_r, v_r).
 
 Key layout: ``cws`` is [..., in_bits+1, 8] int32; row i < n is {s_cw with
 tl_cw in the clamped bit (lanes 0-3), v_cw with tr_cw in the clamped bit

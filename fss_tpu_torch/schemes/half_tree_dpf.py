@@ -5,8 +5,8 @@ key axis with a Python loop over tree levels. Bit-exact with the
 reference: keys generated from the same seeds give the same correction
 words, and Eval and EvalAll the same output shares.
 
-One CCR-hash call per node, H(hash_key ^ node) through the ChaCha mul=1
-PRG; the right child costs nothing (right = left ^ parent). Unlike the
+One CCR-hash call per node, H(hash_key ^ node) through the mul=1 PRG
+(ChaCha or AES-MMO); the right child costs nothing (right = left ^ parent). Unlike the
 DPF, a node carries its control bit t in the clamped bit throughout, and
 the hash sees it. The correction words follow the reference's corrected
 formulas (docs/design.md "Half-Tree correction words").

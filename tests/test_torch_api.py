@@ -18,17 +18,23 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.api import DEFAULT_NONCE, Dcf, Dpf, PackedDpfKeys
+from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
 from torch_threads import one_torch_thread  # noqa: F401
 
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
-# The AES cases wait for the AES-128-MMO PRG and its kernels (ROADMAP.md
-# queue A item 10 and queue B items 14-18).
-_DPF_CASES = [c for c in json.loads((VEC / "dpf.json").read_text())["cases"]
-              if c["prg"] == "chacha"]
-_DCF_CASES = [c for c in json.loads((VEC / "dcf.json").read_text())["cases"]
-              if c["prg"] == "chacha"]
+# Every case: ChaCha and AES-128-MMO.
+_DPF_CASES = json.loads((VEC / "dpf.json").read_text())["cases"]
+_DCF_CASES = json.loads((VEC / "dcf.json").read_text())["cases"]
+
+
+def golden_prg(case, mul):
+    """The port's PRG of a golden case: AES-MMO with the case's first
+    ``mul`` keys, or ChaCha with its nonce."""
+    if case["prg"] == "aes":
+        return AesMmo(mul, [bytes.fromhex(k) for k in case["aes_keys"][:mul]])
+    return ChaCha(mul, (case["nonce_lo"], case["nonce_hi"]))
 
 
 def _u32(h):
@@ -52,7 +58,7 @@ def _bytes(t):
 def test_dpf_golden(case):
     n = case["in_bits"]
     d = Dpf(n, group=_group(case["group"]),
-            prg=ChaCha(2, (case["nonce_lo"], case["nonce_hi"])),
+            prg=golden_prg(case, 2),
             device="cpu")
     s0s = np.stack([_u32(h) for h in case["s0s"]])
     cws = d.gen(s0s, int(case["alpha"], 0), _u32(case["beta"]))
@@ -135,7 +141,7 @@ def test_dpf_defaults_and_inputs(rng):
 
 
 def test_dcf_golden_case_count():
-    assert len(_DCF_CASES) == 6
+    assert len(_DCF_CASES) == 7
 
 
 @pytest.mark.parametrize(
@@ -144,7 +150,7 @@ def test_dcf_golden_case_count():
 def test_dcf_golden(case):
     n = case["in_bits"]
     d = Dcf(n, group=_group(case["group"]),
-            prg=ChaCha(4, (case["nonce_lo"], case["nonce_hi"])),
+            prg=golden_prg(case, 4),
             pred=case["pred"], device="cpu")
     s0s = np.stack([_u32(h) for h in case["s0s"]])
     cws = d.gen(s0s, int(case["alpha"], 0), _u32(case["beta"]))

@@ -25,9 +25,11 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dcf_cuda
+from fss_tpu_torch.prg.chacha import ChaCha
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG4 = ChaCha(4, NONCE)
 
 # The ten groups of test_tree_kernels_pallas.py, as (JAX, port) pairs.
 GROUPS = {
@@ -67,7 +69,7 @@ def _keys(rng, tg, in_bits, B, pred="lt"):
     s0s = rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint32)
     alphas = [int(a) for a in rng.integers(0, 2**min(in_bits, 63), size=B)]
     betas = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint32)
-    cws = dcf_cuda.gen_batch(NONCE, tg, in_bits, pred, to_cpu(s0s),
+    cws = dcf_cuda.gen_batch(PRG4, tg, in_bits, pred, to_cpu(s0s),
                              tblk.pack_inputs(alphas, in_bits, "cpu"),
                              to_cpu(betas))
     return s0s, alphas, betas, tblk.to_numpy(cws)
@@ -87,7 +89,7 @@ def test_eval_matches_jax_kernel(gname, rng):
         wants = jax_eval(jg, in_bits, s0s, cws, xs)
     shares = []
     for party, want in enumerate(wants):
-        got = dcf_cuda.eval_points(NONCE, tg, in_bits, party,
+        got = dcf_cuda.eval_points(PRG4, tg, in_bits, party,
                                    to_cpu(s0s[:, party]), to_cpu(cws),
                                    to_cpu(xs))
         assert np.array_equal(tblk.to_numpy(got), want), f"party {party}"
@@ -110,7 +112,7 @@ def test_eval_wide_domain_matches_jax_kernel(rng):
     xs = [x % (1 << in_bits) for x in xs]
     x_lanes = tblk.to_numpy(tblk.pack_inputs(xs, in_bits, "cpu"))
     for party, want in enumerate(jax_eval(jg, in_bits, s0s, cws, x_lanes)):
-        got = dcf_cuda.eval_points(NONCE, tg, in_bits, party,
+        got = dcf_cuda.eval_points(PRG4, tg, in_bits, party,
                                    to_cpu(s0s[:, party]), to_cpu(cws),
                                    to_cpu(x_lanes))
         assert np.array_equal(tblk.to_numpy(got), want), f"party {party}"
@@ -123,9 +125,9 @@ def test_broadcast_key_matches_wire_rows(rng):
     tg = tgroups.Uint(128, (1 << 127) - 1)
     s0s, _, _, cws = _keys(rng, tg, in_bits, 1)
     xs = to_cpu(rng.integers(0, 2**in_bits, size=B, dtype=np.uint32))
-    one = dcf_cuda.eval_points(NONCE, tg, in_bits, 1, to_cpu(s0s[0, 1]),
+    one = dcf_cuda.eval_points(PRG4, tg, in_bits, 1, to_cpu(s0s[0, 1]),
                                to_cpu(cws[0]), xs)
-    rows = dcf_cuda.eval_points(NONCE, tg, in_bits, 1,
+    rows = dcf_cuda.eval_points(PRG4, tg, in_bits, 1,
                                 to_cpu(np.repeat(s0s[:, 1], B, axis=0)),
                                 to_cpu(np.repeat(cws, B, axis=0)), xs)
     assert torch.equal(one, rows)
@@ -180,9 +182,9 @@ def test_modes_and_masks():
     with pytest.raises(ValueError):
         dcf_cuda.eval_packed(torch.zeros(4, dtype=torch.int32),
                              torch.zeros((9, 8), dtype=torch.int32),
-                             torch.zeros(3, dtype=torch.int32), 8, 0, NONCE,
+                             torch.zeros(3, dtype=torch.int32), 8, 0, PRG4,
                              group_mode="add")
     with pytest.raises(ValueError):  # in_bits > 32 needs x as lanes
         dcf_cuda.eval_packed(torch.zeros(4, dtype=torch.int32),
                              torch.zeros((41, 8), dtype=torch.int32),
-                             torch.zeros(3, dtype=torch.int32), 40, 0, NONCE)
+                             torch.zeros(3, dtype=torch.int32), 40, 0, PRG4)

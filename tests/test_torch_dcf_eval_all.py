@@ -28,6 +28,7 @@ from fss_tpu_torch.schemes import dcf as tdcf
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG4 = TChaCha(4, NONCE)
 
 
 def to_cpu(arr):
@@ -125,7 +126,7 @@ def test_level_split_matches_breadth_first(in_bits, spec, rng):
         got = eval_all_cuda.dcf_eval_all(prg, tg, in_bits, party, s0s[party],
                                          cws)
         assert torch.equal(got, want)
-        points = dcf_cuda.eval_points(NONCE, tg, in_bits, party, s0s[party],
+        points = dcf_cuda.eval_points(PRG4, tg, in_bits, party, s0s[party],
                                       cws, xs)
         assert torch.equal(points, want)
 
@@ -134,7 +135,7 @@ def test_dcf_expand_packed_layouts(rng):
     roots = to_cpu(rng.integers(0, 2**32, size=(5, 4), dtype=np.uint32))
     acc = to_cpu(rng.integers(0, 2**32, size=(5, 5), dtype=np.uint32))
     cw_rows = to_cpu(rng.integers(0, 2**32, size=(3, 8), dtype=np.uint32))
-    args = (NONCE, 20, "mod128np", (0xFFFFFFFF,) * 3 + (0xFFFFFFFE,))
+    args = (PRG4, "mod128np", (0xFFFFFFFF,) * 3 + (0xFFFFFFFE,))
     packed, acc3 = eval_all_cuda.dcf_expand_packed(roots, acc, cw_rows,
                                                    *args)
     s, t, acc_f = eval_all_cuda.dcf_expand_packed(roots, acc, cw_rows, *args,

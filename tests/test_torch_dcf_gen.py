@@ -22,9 +22,11 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dcf_cuda
+from fss_tpu_torch.prg.chacha import ChaCha
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG4 = ChaCha(4, NONCE)
 
 GROUPS = {
     "bytes": None,
@@ -70,7 +72,7 @@ def test_gen_matches_jax(gname, pred, rng):
     else:
         want = jax_gen(jg, in_bits, pred, s0s,
                        jblk.pack_inputs(alphas, in_bits), betas)
-    got = dcf_cuda.gen_batch(NONCE, tg, in_bits, pred, to_cpu(s0s),
+    got = dcf_cuda.gen_batch(PRG4, tg, in_bits, pred, to_cpu(s0s),
                              to_cpu(alphas), to_cpu(betas))
     assert got.shape == (B, in_bits + 1, 8)
     assert np.array_equal(tblk.to_numpy(got), want)
@@ -87,7 +89,7 @@ def test_gen_wide_domain_matches_jax(rng):
     betas = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint32)
     a_lanes = tblk.pack_inputs(alphas, in_bits, "cpu")
     want = jax_gen(jg, in_bits, "gt", s0s, tblk.to_numpy(a_lanes), betas)
-    got = dcf_cuda.gen_batch(NONCE, tg, in_bits, "gt", to_cpu(s0s), a_lanes,
+    got = dcf_cuda.gen_batch(PRG4, tg, in_bits, "gt", to_cpu(s0s), a_lanes,
                              to_cpu(betas))
     assert np.array_equal(tblk.to_numpy(got), want)
 
@@ -99,10 +101,10 @@ def test_gen_gt_reconstructs(rng):
     s0s = to_cpu(rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint32))
     alphas = rng.integers(0, 2**in_bits, size=B, dtype=np.uint32)
     betas = to_cpu(rng.integers(0, 2**32, size=(B, 4), dtype=np.uint32))
-    cws = dcf_cuda.gen_batch(NONCE, tg, in_bits, "gt", s0s, to_cpu(alphas),
+    cws = dcf_cuda.gen_batch(PRG4, tg, in_bits, "gt", s0s, to_cpu(alphas),
                              betas)
     xs = (alphas.astype(np.int64) + rng.integers(-3, 4, size=B)) % 64
-    ys = [dcf_cuda.eval_points(NONCE, tg, in_bits, p, s0s[:, p].contiguous(),
+    ys = [dcf_cuda.eval_points(PRG4, tg, in_bits, p, s0s[:, p].contiguous(),
                                cws, to_cpu(xs.astype(np.uint32)))
           for p in (0, 1)]
     rec = tg.add(tg.from_block(ys[0]), tg.from_block(ys[1]))
@@ -117,10 +119,10 @@ def test_gen_checks_inputs():
     betas = torch.zeros((3, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         dcf_cuda.gen_packed(s0s, torch.zeros(3, dtype=torch.int32), betas, 8,
-                            NONCE, "le", tgroups.Bytes())
+                            PRG4, "le", tgroups.Bytes())
     with pytest.raises(ValueError):  # in_bits > 32 needs alpha as lanes
         dcf_cuda.gen_packed(s0s, torch.zeros(3, dtype=torch.int32), betas,
-                            40, NONCE, "lt", tgroups.Bytes())
+                            40, PRG4, "lt", tgroups.Bytes())
     with pytest.raises(ValueError):
         dcf_cuda.gen_packed(s0s, torch.zeros(3, dtype=torch.int32),
-                            betas[:2], 8, NONCE, "lt", tgroups.Bytes())
+                            betas[:2], 8, PRG4, "lt", tgroups.Bytes())

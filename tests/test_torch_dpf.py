@@ -27,6 +27,7 @@ from fss_tpu_torch.schemes import dpf as tdpf
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG2 = TChaCha(2, NONCE)
 B = 300  # not a multiple of anything the kernels tile by
 
 GROUPS = {
@@ -92,7 +93,7 @@ def test_eval_matches_jax(gname, party, rng):
 
     s0, kc, kx = (to_cpu(s0s[:, party]), to_cpu(cws),
                   to_cpu(xs))
-    got_ops = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, kc, kx)
+    got_ops = dpf_cuda.eval_points(PRG2, tg, in_bits, party, s0, kc, kx)
     got_plain = tdpf.eval_points(TChaCha(2, NONCE), tg, in_bits, party, s0,
                                  kc, tblk.pack_inputs(kx, in_bits))
     assert np.array_equal(_np(got_ops), want)
@@ -113,13 +114,13 @@ def test_gen_matches_jax(gname, rng):
                        betas)
     ts0s, ta, tb = (to_cpu(s0s), to_cpu(alphas),
                     to_cpu(betas))
-    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(ts0s, ta, in_bits, NONCE)
+    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed(ts0s, ta, in_bits, PRG2)
     assert np.array_equal(_np(cws[:, in_bits]), np.zeros((B, 8), np.uint32))
     cws[:, in_bits, :4] = dpf_cuda.output_cw(tg, s0f, s1f, t1,
                                              to_cpu(betas))
     assert np.array_equal(_np(cws), want)
     assert np.array_equal(
-        _np(dpf_cuda.gen_batch(NONCE, tg, in_bits, ts0s, ta, tb)), want)
+        _np(dpf_cuda.gen_batch(PRG2, tg, in_bits, ts0s, ta, tb)), want)
     plain = tdpf.gen(TChaCha(2, NONCE), tg, in_bits, ts0s,
                      tblk.pack_inputs(ta, in_bits), tb)
     assert np.array_equal(_np(plain), want)
@@ -144,16 +145,16 @@ def test_packed_keys_from_jax_match_wire_path(rng):
 
     # The port's own packed Gen gives the same planes.
     cws_p, ocw_p = dpf_cuda.gen_batch_packed(
-        NONCE, tg, in_bits, to_cpu(s0s), to_cpu(alphas),
+        PRG2, tg, in_bits, to_cpu(s0s), to_cpu(alphas),
         to_cpu(betas))
     assert torch.equal(cws_p, keys.cws_p) and torch.equal(ocw_p, keys.ocw)
 
     tw = to_cpu(wire)
     for party in (0, 1):
         s0, tx = to_cpu(s0s[:, party]), to_cpu(xs)
-        via_wire = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, tw, tx)
+        via_wire = dpf_cuda.eval_points(PRG2, tg, in_bits, party, s0, tw, tx)
         via_packed = dpf_cuda.eval_points_packedkey(
-            NONCE, tg, in_bits, party, s0, keys.cws_p, keys.ocw, tx)
+            PRG2, tg, in_bits, party, s0, keys.cws_p, keys.ocw, tx)
         assert torch.equal(via_packed, via_wire)
         want = jax_eval(jg, in_bits, party, s0s[:, party], wire, xs)
         assert np.array_equal(_np(via_wire), want)
@@ -171,7 +172,7 @@ def test_wide_domain_matches_jax(rng):
     want = jax_gen(jg, in_bits, s0s, jblk.pack_inputs(alphas, in_bits),
                    betas)
     ts0s, ta = to_cpu(s0s), tblk.pack_inputs(alphas, in_bits)
-    cws = dpf_cuda.gen_batch(NONCE, tg, in_bits, ts0s, ta,
+    cws = dpf_cuda.gen_batch(PRG2, tg, in_bits, ts0s, ta,
                              to_cpu(betas))
     assert np.array_equal(_np(cws), want)
 
@@ -180,7 +181,7 @@ def test_wide_domain_matches_jax(rng):
     for party in (0, 1):
         ref = jax_eval(jg, in_bits, party, s0s[:, party], want,
                        jblk.pack_inputs(xs, in_bits))
-        got = dpf_cuda.eval_points(NONCE, tg, in_bits, party,
+        got = dpf_cuda.eval_points(PRG2, tg, in_bits, party,
                                    ts0s[:, party].contiguous(), cws, x_lanes)
         assert np.array_equal(_np(got), ref)
         shares.append(got)
@@ -194,16 +195,16 @@ def test_broadcast_key_matches_per_key_rows(rng):
     in_bits = 10
     tg = tgroups.Uint(64, (1 << 61) - 1)
     s0s, alphas, betas, _ = _inputs(rng, in_bits, batch=1)
-    cws = dpf_cuda.gen_batch(NONCE, tg, in_bits, to_cpu(s0s),
+    cws = dpf_cuda.gen_batch(PRG2, tg, in_bits, to_cpu(s0s),
                              to_cpu(alphas),
                              to_cpu(betas))[0]
     xs = to_cpu(np.arange(2**in_bits, dtype=np.uint32))
     for party in (0, 1):
         s0 = to_cpu(s0s[0, party])
-        one = dpf_cuda.eval_points(NONCE, tg, in_bits, party, s0, cws, xs)
+        one = dpf_cuda.eval_points(PRG2, tg, in_bits, party, s0, cws, xs)
         rows = cws.expand(xs.shape[0], -1, -1).contiguous()
         seeds = s0.expand(xs.shape[0], 4).contiguous()
-        many = dpf_cuda.eval_points(NONCE, tg, in_bits, party, seeds, rows,
+        many = dpf_cuda.eval_points(PRG2, tg, in_bits, party, seeds, rows,
                                     xs)
         assert torch.equal(one, many)
 
@@ -213,19 +214,19 @@ def test_kernel_wrappers_validate_inputs():
     xs = torch.zeros((4,), dtype=torch.int32)
     cws = torch.zeros((4, 9, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
-        dpf_cuda.eval_packed(s0.long(), cws, xs, 8, 0, NONCE)
+        dpf_cuda.eval_packed(s0.long(), cws, xs, 8, 0, PRG2)
     with pytest.raises(ValueError):
-        dpf_cuda.eval_packed(s0, cws[:, :8], xs, 8, 0, NONCE)
+        dpf_cuda.eval_packed(s0, cws[:, :8], xs, 8, 0, PRG2)
     with pytest.raises(ValueError):
         dpf_cuda.eval_packed(s0, cws.transpose(0, 1).contiguous()
-                             .transpose(0, 1), xs, 8, 0, NONCE)
+                             .transpose(0, 1), xs, 8, 0, PRG2)
     with pytest.raises(ValueError):  # wide domains need x as 4 lanes
         dpf_cuda.eval_packed(s0, torch.zeros((4, 41, 8), dtype=torch.int32),
-                             xs, 40, 0, NONCE)
+                             xs, 40, 0, PRG2)
     with pytest.raises(ValueError):
         dpf_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
-                            8, NONCE, layout="rows")
+                            8, PRG2, layout="rows")
     with pytest.raises(ValueError):  # the control bit starts as the party
-        dpf_cuda.eval_packed(s0, cws, xs, 8, 2, NONCE)
+        dpf_cuda.eval_packed(s0, cws, xs, 8, 2, PRG2)
     with pytest.raises(ValueError):
-        dpf_cuda.eval_packed(s0, cws, xs, 8, 0, NONCE, rounds=7)
+        dpf_cuda.eval_packed(s0, cws, xs, 8, 0, TChaCha(2, NONCE, 7))

@@ -26,6 +26,7 @@ from fss_tpu_torch.schemes import dpf as tdpf
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG2 = TChaCha(2, NONCE)
 
 
 def to_cpu(arr):
@@ -95,19 +96,19 @@ def test_expand_packed_layouts(rng):
                                           dtype=np.uint32))
     cw_rows = to_cpu(rng.integers(0, 2**32, size=(3, 8),
                                             dtype=np.uint32))
-    packed = eval_all_cuda.expand_packed(roots, cw_rows, NONCE)
-    s, t = eval_all_cuda.expand_packed(roots, cw_rows, NONCE, final=True)
+    packed = eval_all_cuda.expand_packed(roots, cw_rows, PRG2)
+    s, t = eval_all_cuda.expand_packed(roots, cw_rows, PRG2, final=True)
     assert packed.shape == (40, 4) and t.shape == (40,)
     assert torch.equal(tblk.clear_lsb(packed), s)
     assert torch.equal(tblk.get_lsb(packed), t)
     # Two launches of 1 and 2 levels equal one of 3.
-    step = eval_all_cuda.expand_packed(roots, cw_rows[:1], NONCE)
-    assert torch.equal(eval_all_cuda.expand_packed(step, cw_rows[1:], NONCE),
+    step = eval_all_cuda.expand_packed(roots, cw_rows[:1], PRG2)
+    assert torch.equal(eval_all_cuda.expand_packed(step, cw_rows[1:], PRG2),
                        packed)
     with pytest.raises(ValueError):
         eval_all_cuda.expand_packed(roots, torch.zeros((4, 8),
                                                        dtype=torch.int32),
-                                    NONCE)
+                                    PRG2)
     with pytest.raises(ValueError):
         eval_all_cuda.expand_leaves(TChaCha(2, NONCE), 3, 2, roots[0],
                                     cw_rows)

@@ -26,6 +26,7 @@ from fss_tpu_torch.schemes import dpf as plain_dpf
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG2 = ChaCha(2, NONCE)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 
@@ -57,7 +58,7 @@ def test_eval_kernel_matches_plain(n, layout, cuda):
     batch = 1000
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
-    wire = dpf_cuda.gen_batch(NONCE, groups.Bytes(), n, s0s, alphas,
+    wire = dpf_cuda.gen_batch(PRG2, groups.Bytes(), n, s0s, alphas,
                               _words(rng, (batch, 4), cuda))
     xs = alphas.clone()
     xs.view(batch, -1)[1::2, 0] ^= 1
@@ -68,9 +69,9 @@ def test_eval_kernel_matches_plain(n, layout, cuda):
         "broadcast": (s0s[0, 0].contiguous(), wire[0].contiguous(), False),
     }[layout]
     for party in (0, 1):
-        got = dpf_cuda.eval_packed(s0, cws, xs, n, party, NONCE,
+        got = dpf_cuda.eval_packed(s0, cws, xs, n, party, PRG2,
                                    packed=packed)
-        want = dpf_cuda.eval_packed_plain(s0, cws, xs, n, party, NONCE,
+        want = dpf_cuda.eval_packed_plain(s0, cws, xs, n, party, PRG2,
                                           packed=packed)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -82,8 +83,8 @@ def test_gen_kernel_matches_plain(n, layout, cuda):
     batch = 1000
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
-    got = dpf_cuda.gen_packed(s0s, alphas, n, NONCE, layout=layout)
-    want = dpf_cuda.gen_packed_plain(s0s, alphas, n, NONCE, layout=layout)
+    got = dpf_cuda.gen_packed(s0s, alphas, n, PRG2, layout=layout)
+    want = dpf_cuda.gen_packed_plain(s0s, alphas, n, PRG2, layout=layout)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -26,6 +26,7 @@ from fss_tpu_torch.prg.chacha import ChaCha
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG4 = ChaCha(4, NONCE)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 # One group per accumulator mode, and the two narrow moduli.
@@ -70,7 +71,7 @@ def test_eval_kernel_matches_plain(gname, n, layout, cuda):
     batch = 1000
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
-    wire = dcf_cuda.gen_batch(NONCE, g, n, "lt", s0s, alphas,
+    wire = dcf_cuda.gen_batch(PRG4, g, n, "lt", s0s, alphas,
                               _words(rng, (batch, 4), cuda))
     xs = alphas.clone()
     xs.view(batch, -1)[1::2, 0] ^= 1
@@ -80,8 +81,8 @@ def test_eval_kernel_matches_plain(gname, n, layout, cuda):
     }[layout]
     mode, vmask = dcf_cuda.group_mode(g), dcf_cuda.value_mask(g)
     for party in (0, 1):
-        got = dcf_cuda.eval_packed(s0, cws, xs, n, party, NONCE, mode, vmask)
-        want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, party, NONCE, mode,
+        got = dcf_cuda.eval_packed(s0, cws, xs, n, party, PRG4, mode, vmask)
+        want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, party, PRG4, mode,
                                           vmask)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -96,8 +97,8 @@ def test_gen_kernel_matches_plain(gname, n, pred, cuda):
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
     betas = _words(rng, (batch, 4), cuda)
-    got = dcf_cuda.gen_packed(s0s, alphas, betas, n, NONCE, pred, g)
-    want = dcf_cuda.gen_packed_plain(s0s, alphas, betas, n, NONCE, pred, g)
+    got = dcf_cuda.gen_packed(s0s, alphas, betas, n, PRG4, pred, g)
+    want = dcf_cuda.gen_packed_plain(s0s, alphas, betas, n, PRG4, pred, g)
     assert torch.equal(got, want)
 
 
@@ -108,7 +109,7 @@ def test_eval_all_kernel_matches_plain(gname, n, cuda):
     rng = np.random.default_rng(200 + n)
     prg = ChaCha(4, NONCE)
     s0s = _words(rng, (1, 2, 4), cuda)
-    cws = dcf_cuda.gen_batch(NONCE, g, n, "lt", s0s,
+    cws = dcf_cuda.gen_batch(PRG4, g, n, "lt", s0s,
                              _inputs(rng, n, 1, cuda),
                              _words(rng, (1, 4), cuda))[0]
     mode, vmask = dcf_cuda.group_mode(g), dcf_cuda.value_mask(g)

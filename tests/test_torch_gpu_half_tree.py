@@ -27,6 +27,7 @@ from fss_tpu_torch.prg.chacha import ChaCha
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG1 = ChaCha(1, NONCE)
 HASH_KEY = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
@@ -60,7 +61,7 @@ def test_eval_kernel_matches_plain(n, layout, cuda):
     batch = 1000
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
-    wire, _ = ht_cuda.gen_batch(NONCE, groups.Bytes(), n, HASH_KEY, s0s,
+    wire, _ = ht_cuda.gen_batch(PRG1, groups.Bytes(), n, HASH_KEY, s0s,
                                 alphas, _words(rng, (batch, 4), cuda))
     xs = alphas.clone()
     xs.view(batch, -1)[1::2, 0] ^= 1
@@ -69,8 +70,8 @@ def test_eval_kernel_matches_plain(n, layout, cuda):
         "broadcast": (s0s[0, 0].contiguous(), wire[0].contiguous()),
     }[layout]
     for party in (0, 1):
-        got = ht_cuda.eval_packed(s0, cws, xs, n, party, NONCE, HASH_KEY)
-        want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party, NONCE,
+        got = ht_cuda.eval_packed(s0, cws, xs, n, party, PRG1, HASH_KEY)
+        want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party, PRG1,
                                          HASH_KEY)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -83,8 +84,8 @@ def test_gen_kernel_matches_plain(n, lanes, cuda):
     batch = 500
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda, lanes)
-    got = ht_cuda.gen_packed(s0s, alphas, n, NONCE, HASH_KEY)
-    want = ht_cuda.gen_packed_plain(s0s, alphas, n, NONCE, HASH_KEY)
+    got = ht_cuda.gen_packed(s0s, alphas, n, PRG1, HASH_KEY)
+    want = ht_cuda.gen_packed_plain(s0s, alphas, n, PRG1, HASH_KEY)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -93,7 +94,7 @@ def test_eval_all_kernel_matches_plain(n, cuda):
     rng = np.random.default_rng(200 + n)
     prg = ChaCha(1, NONCE)
     s0s = _words(rng, (1, 2, 4), cuda)
-    cws, _ = ht_cuda.gen_batch(NONCE, groups.Bytes(), n, HASH_KEY, s0s,
+    cws, _ = ht_cuda.gen_batch(PRG1, groups.Bytes(), n, HASH_KEY, s0s,
                                _inputs(rng, n, 1, cuda, lanes=True),
                                _words(rng, (1, 4), cuda))
     for party in (0, 1):

@@ -30,6 +30,7 @@ from fss_tpu_torch.schemes import vdpf as plain_vdpf
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
+PRG2 = ChaCha(2, NONCE)
 HASHES = {"blake3": Blake3(range(0x10, 0x18)),
           "sha256": Sha256((0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D))}
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
@@ -97,7 +98,7 @@ def test_eval_kernel_matches_plain(n, layout, name, cuda):
     batch = 1000
     s0s = _words(rng, (batch, 2, 4), cuda)
     alphas = _inputs(rng, n, batch, cuda)
-    cws = vdpf_cuda.gen_batch(NONCE, HASHES[name], groups.Bytes(), n, s0s,
+    cws = vdpf_cuda.gen_batch(PRG2, HASHES[name], groups.Bytes(), n, s0s,
                               alphas, _words(rng, (batch, 4), cuda))[0]
     xs = alphas.clone()
     xs.view(batch, -1)[1::2, 0] ^= 1
@@ -106,8 +107,8 @@ def test_eval_kernel_matches_plain(n, layout, name, cuda):
             "wire": (s0s[:, party].contiguous(), cws),
             "broadcast": (s0s[0, party].contiguous(), cws[0].contiguous()),
         }[layout]
-        got = vdpf_cuda.eval_packed(s0, k, xs, n, party, NONCE, HASHES[name])
-        want = vdpf_cuda.eval_packed_plain(s0, k, xs, n, party, NONCE,
+        got = vdpf_cuda.eval_packed(s0, k, xs, n, party, PRG2, HASHES[name])
+        want = vdpf_cuda.eval_packed_plain(s0, k, xs, n, party, PRG2,
                                            HASHES[name])
         assert _same(got, want)
 
@@ -123,7 +124,7 @@ def test_gen_matches_plain(n, lanes, name, cuda):
                                                           cuda)
     alphas = _inputs(rng, n, batch, cuda, lanes)
     mod, key = _mod(name)
-    got = vdpf_cuda.gen_batch(NONCE, HASHES[name], g, n, s0s, alphas, betas)
+    got = vdpf_cuda.gen_batch(PRG2, HASHES[name], g, n, s0s, alphas, betas)
     want = plain_vdpf.gen(ChaCha(2, NONCE),
                           lambda a, b: mod.xor_hash_plain(key, a, b), g, n,
                           s0s, blk.pack_inputs(alphas, n, cuda).reshape(-1, 4),
@@ -141,7 +142,7 @@ def test_eval_all_matches_plain(n, fold, name, cuda):
     mod, key = _mod(name)
     s0s = _words(rng, (1, 2, 4), cuda)
     keys = [t[0] for t in vdpf_cuda.gen_batch(
-        NONCE, HASHES[name], g, n, s0s, _inputs(rng, n, 1, cuda, True),
+        PRG2, HASHES[name], g, n, s0s, _inputs(rng, n, 1, cuda, True),
         _words(rng, (1, 4), cuda))][:3]
 
     def h64(m):

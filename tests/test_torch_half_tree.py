@@ -31,9 +31,11 @@ from fss_tpu_torch.api import DEFAULT_NONCE, HalfTreeDpf
 from fss_tpu_torch.ops import ht_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import half_tree_dpf as tht
+from test_torch_api import golden_prg
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG1 = ChaCha(1, NONCE)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 GROUPS = {
@@ -44,9 +46,8 @@ GROUPS = {
     "uint127m": (128, (1 << 127) - 1),
 }
 
-# The AES case waits for the AES-128-MMO PRG (ROADMAP.md queue A item 10).
-_CASES = [c for c in json.loads((VEC / "half_tree.json").read_text())
-          ["cases"] if c["prg"] == "chacha"]
+# Every case: ChaCha and AES-128-MMO.
+_CASES = json.loads((VEC / "half_tree.json").read_text())["cases"]
 
 
 def groups_pair(gname):
@@ -97,7 +98,7 @@ def test_gen_and_eval_match_xla(gname, in_bits, rng):
         lambda s, a, b: jht.gen(prg, jg, in_bits, jhk, s, a, b)))(
             jblk.block(s0s), _np(a_lanes), jblk.block(betas)))
     ts0s, tbetas = to_cpu(s0s), to_cpu(betas)
-    cws, ocw = ht_cuda.gen_batch(NONCE, tg, in_bits, hk, ts0s, a_lanes,
+    cws, ocw = ht_cuda.gen_batch(PRG1, tg, in_bits, hk, ts0s, a_lanes,
                                  tbetas)
     assert cws.shape == (B, in_bits, 8) and ocw.shape == (B, 4)
     assert np.array_equal(_np(cws), jcws) and np.array_equal(_np(ocw), jocw)
@@ -117,13 +118,13 @@ def test_gen_and_eval_match_xla(gname, in_bits, rng):
     ys = []
     for party in (0, 1):
         s0 = ts0s[:, party].contiguous()
-        got = ht_cuda.eval_points(NONCE, tg, in_bits, party, hk, s0, cws,
+        got = ht_cuda.eval_points(PRG1, tg, in_bits, party, hk, s0, cws,
                                   ocw, x_lanes)
         assert np.array_equal(_np(got), want[party]), f"party {party}"
         assert torch.equal(got, tht.eval_points(
             ChaCha(1, NONCE), tg, in_bits, party,
             ht_cuda.hash_block(hk, "cpu"), s0, cws, ocw, x_lanes))
-        one = ht_cuda.eval_points(NONCE, tg, in_bits, party, hk,
+        one = ht_cuda.eval_points(PRG1, tg, in_bits, party, hk,
                                   s0[0].contiguous(), cws[0].contiguous(),
                                   ocw[0], x_lanes)
         assert np.array_equal(_np(one), want1[party]), f"party {party}"
@@ -136,15 +137,14 @@ def _u32(h):
 
 
 def test_golden_case_count():
-    assert len(_CASES) == 4
+    assert len(_CASES) == 5
 
 
 @pytest.mark.parametrize(
     "case", _CASES, ids=lambda c: f"{c['prg']}-{c['group']}-{c['in_bits']}")
 def test_golden(case):
     g = {"bytes": tgroups.Bytes(), "uint64": tgroups.Uint(64)}[case["group"]]
-    d = HalfTreeDpf(case["in_bits"], g,
-                    ChaCha(1, (case["nonce_lo"], case["nonce_hi"])),
+    d = HalfTreeDpf(case["in_bits"], g, golden_prg(case, 1),
                     hash_key=_u32(case["hash_key"]), device="cpu")
     s0s = np.stack([_u32(h) for h in case["s0s"]])
     cws, ocw = d.gen(s0s, int(case["alpha"], 0), _u32(case["beta"]))

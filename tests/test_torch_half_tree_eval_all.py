@@ -26,6 +26,7 @@ from fss_tpu_torch.schemes import half_tree_dpf as tht
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG1 = ChaCha(1, NONCE)
 
 GROUPS = {
     "bytes": None,
@@ -61,7 +62,7 @@ def _key(rng, tg, in_bits):
     s0s = rng.integers(0, 2**32, size=(2, 4), dtype=np.uint32)
     alpha = int(rng.integers(0, 2**in_bits))
     cws, ocw = ht_cuda.gen_batch(
-        NONCE, tg, in_bits, hk, to_cpu(s0s[None]),
+        PRG1, tg, in_bits, hk, to_cpu(s0s[None]),
         tblk.pack_inputs([alpha], in_bits, "cpu"),
         to_cpu(rng.integers(0, 2**32, size=(1, 4), dtype=np.uint32)))
     return hk, s0s, cws[0], ocw[0]
@@ -115,7 +116,7 @@ def test_level_split_matches_breadth_first(in_bits, rng):
         got = eval_all_cuda.ht_eval_all(prg, tg, in_bits, party, hk, s0,
                                         cws, ocw)
         assert torch.equal(got, want)
-        points = ht_cuda.eval_points(NONCE, tg, in_bits, party, hk, s0,
+        points = ht_cuda.eval_points(PRG1, tg, in_bits, party, hk, s0,
                                      cws, ocw, xs)
         assert torch.equal(points, want)
 
@@ -124,23 +125,23 @@ def test_ht_expand_packed_layouts(rng):
     roots = to_cpu(rng.integers(0, 2**32, size=(5, 4), dtype=np.uint32))
     rows = to_cpu(rng.integers(0, 2**32, size=(3, 8), dtype=np.uint32))
     hk = (1, 2, 3, 4)
-    nodes = eval_all_cuda.ht_expand_packed(roots, rows, NONCE, hk)
-    high, low = eval_all_cuda.ht_expand_packed(roots, rows, NONCE, hk,
+    nodes = eval_all_cuda.ht_expand_packed(roots, rows, PRG1, hk)
+    high, low = eval_all_cuda.ht_expand_packed(roots, rows, PRG1, hk,
                                                final=True)
     assert nodes.shape == (40, 4) and high.shape == (40, 4)
     assert low.shape == (40,) and not tblk.get_lsb(high).any()
     # A final launch is its doubling levels, then the conversion alone.
-    parents = eval_all_cuda.ht_expand_packed(roots, rows[:2], NONCE, hk)
-    conv = eval_all_cuda.ht_expand_packed(parents, rows[2:], NONCE, hk,
+    parents = eval_all_cuda.ht_expand_packed(roots, rows[:2], PRG1, hk)
+    conv = eval_all_cuda.ht_expand_packed(parents, rows[2:], PRG1, hk,
                                           final=True)
     assert torch.equal(conv[0], high) and torch.equal(conv[1], low)
     # Two launches of 1 and 2 levels equal one of 3.
-    step = eval_all_cuda.ht_expand_packed(roots, rows[:1], NONCE, hk)
-    assert torch.equal(eval_all_cuda.ht_expand_packed(step, rows[1:], NONCE,
+    step = eval_all_cuda.ht_expand_packed(roots, rows[:1], PRG1, hk)
+    assert torch.equal(eval_all_cuda.ht_expand_packed(step, rows[1:], PRG1,
                                                       hk), nodes)
     with pytest.raises(ValueError):
         eval_all_cuda.ht_expand_packed(roots, torch.zeros(
-            (4, 8), dtype=torch.int32), NONCE, hk)
+            (4, 8), dtype=torch.int32), PRG1, hk)
     with pytest.raises(ValueError):
         eval_all_cuda.ht_expand_leaves(ChaCha(1, NONCE), 3, 2, hk, roots[0],
                                        rows)

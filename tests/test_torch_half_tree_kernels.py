@@ -23,6 +23,7 @@ from fss_tpu_torch.prg.chacha import ChaCha
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG1 = ChaCha(1, NONCE)
 
 
 def to_cpu(arr):
@@ -36,7 +37,7 @@ def _key(rng, tg, in_bits, batch, alphas=None):
     if alphas is None:
         alphas = rng.integers(0, 2**in_bits, size=batch, dtype=np.uint32)
     cws, ocw = ht_cuda.gen_batch(
-        NONCE, tg, in_bits, hk, to_cpu(s0s), tblk.pack_inputs(
+        PRG1, tg, in_bits, hk, to_cpu(s0s), tblk.pack_inputs(
             alphas, in_bits, "cpu"),
         to_cpu(rng.integers(0, 2**32, size=(batch, 4), dtype=np.uint32)))
     return hk, s0s, alphas, cws, ocw
@@ -53,7 +54,7 @@ def test_eval_matches_jax_kernel(rng):
             NONCE, jg, in_bits, party, hk, s0s[:, party],
             tblk.to_numpy(cws), tblk.to_numpy(ocw), xs, block_rows=8,
             interpret=True))
-        got = ht_cuda.eval_points(NONCE, tg, in_bits, party, hk,
+        got = ht_cuda.eval_points(PRG1, tg, in_bits, party, hk,
                                   to_cpu(s0s[:, party]), cws, ocw,
                                   to_cpu(xs))
         assert np.array_equal(tblk.to_numpy(got), want), f"party {party}"
@@ -70,7 +71,7 @@ def test_gen_matches_jax_kernel(rng):
     want = ht_pallas.gen_batch(NONCE, jg, in_bits, hk, jblk.block(s0s),
                                alphas, jblk.block(betas), block_rows=1,
                                interpret=True)
-    got = ht_cuda.gen_batch(NONCE, tg, in_bits, hk, to_cpu(s0s),
+    got = ht_cuda.gen_batch(PRG1, tg, in_bits, hk, to_cpu(s0s),
                             to_cpu(alphas), to_cpu(betas))
     for a, b in zip(got, want):
         assert np.array_equal(tblk.to_numpy(a), np.asarray(b))
@@ -103,22 +104,22 @@ def test_kernel_wrappers_validate_inputs():
     cws = torch.zeros((4, 8, 8), dtype=torch.int32)
     hk = (0, 0, 0, 0)
     with pytest.raises(TypeError):
-        ht_cuda.eval_packed(s0.long(), cws, xs, 8, 0, NONCE, hk)
+        ht_cuda.eval_packed(s0.long(), cws, xs, 8, 0, PRG1, hk)
     with pytest.raises(ValueError):  # Half-Tree keys have in_bits rows
         ht_cuda.eval_packed(s0, torch.zeros((4, 9, 8), dtype=torch.int32),
-                            xs, 8, 0, NONCE, hk)
+                            xs, 8, 0, PRG1, hk)
     with pytest.raises(ValueError):  # wide domains need x as 4 lanes
         ht_cuda.eval_packed(s0, torch.zeros((4, 40, 8), dtype=torch.int32),
-                            xs, 40, 0, NONCE, hk)
+                            xs, 40, 0, PRG1, hk)
     with pytest.raises(ValueError):
-        ht_cuda.eval_packed(s0, cws, xs, 8, 2, NONCE, hk)
+        ht_cuda.eval_packed(s0, cws, xs, 8, 2, PRG1, hk)
     with pytest.raises(ValueError):
-        ht_cuda.eval_packed(s0, cws, xs, 8, 0, NONCE, hk, rounds=7)
+        ht_cuda.eval_packed(s0, cws, xs, 8, 0, ChaCha(1, NONCE, 7), hk)
     with pytest.raises(ValueError):
-        ht_cuda.eval_packed(s0, cws, xs, 8, 0, NONCE, (1, 2, 3))
+        ht_cuda.eval_packed(s0, cws, xs, 8, 0, PRG1, (1, 2, 3))
     with pytest.raises(ValueError):
         ht_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
-                           0, NONCE, hk)
+                           0, PRG1, hk)
     with pytest.raises(ValueError):  # alphas of 33..128 bits are lanes
         ht_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
-                           40, NONCE, hk)
+                           40, PRG1, hk)

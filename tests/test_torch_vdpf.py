@@ -33,9 +33,11 @@ from fss_tpu_torch.hash import Blake3, Sha256
 from fss_tpu_torch.ops import vdpf_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import vdpf as tvdpf
+from test_torch_api import golden_prg
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
+PRG2 = ChaCha(2, NONCE)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 GROUPS = {
@@ -46,9 +48,8 @@ GROUPS = {
     "uint127m": (128, (1 << 127) - 1),
 }
 
-# The AES case waits for the AES-128-MMO PRG (ROADMAP.md queue A item 10).
-_CASES = [c for c in json.loads((VEC / "vdpf.json").read_text())["cases"]
-          if c["prg"] == "chacha"]
+# Every case: ChaCha and AES-128-MMO.
+_CASES = json.loads((VEC / "vdpf.json").read_text())["cases"]
 
 
 def groups_pair(gname):
@@ -108,7 +109,7 @@ def test_gen_and_eval_match_xla(gname, in_bits, hname, rng):
         lambda s, a, b: jvdpf.gen(prg, jh.xor_hash, jg, in_bits, s, a, b)))(
             jblk.block(s0s), _np(a_lanes), jblk.block(betas))]
     ts0s, tbetas = to_cpu(s0s), to_cpu(betas)
-    got = vdpf_cuda.gen_batch(NONCE, th, tg, in_bits, ts0s, a_lanes, tbetas)
+    got = vdpf_cuda.gen_batch(PRG2, th, tg, in_bits, ts0s, a_lanes, tbetas)
     assert got[0].shape == (B, in_bits, 8) and got[1].shape == (B, 4, 4)
     for g, w in zip(got, want):
         assert np.array_equal(_np(g), w)
@@ -129,14 +130,14 @@ def test_gen_and_eval_match_xla(gname, in_bits, hname, rng):
     ys, pis = [], []
     for party in (0, 1):
         s0 = ts0s[:, party].contiguous()
-        y, pi = vdpf_cuda.eval_points(NONCE, th, tg, in_bits, party, s0, cws,
+        y, pi = vdpf_cuda.eval_points(PRG2, th, tg, in_bits, party, s0, cws,
                                       cs, ocw, x_lanes)
         assert np.array_equal(_np(y), np.asarray(want[party][0]))
         assert np.array_equal(_np(pi), np.asarray(want[party][1]))
         py, ppi = tvdpf.eval_points(ChaCha(2, NONCE), th.xor_hash, tg,
                                     in_bits, party, s0, cws, cs, ocw, x_lanes)
         assert torch.equal(py, y) and torch.equal(ppi, pi)
-        one = vdpf_cuda.eval_points(NONCE, th, tg, in_bits, party,
+        one = vdpf_cuda.eval_points(PRG2, th, tg, in_bits, party,
                                     s0[0].contiguous(), cws[0].contiguous(),
                                     cs[0], ocw[0], x_lanes)
         for o, w in zip(one, want1[party]):
@@ -157,14 +158,14 @@ def test_fused_eval_matches_pallas_kernel(hname, party, rng):
     s0s = rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint32)
     alphas = rng.integers(0, 2**in_bits, size=B, dtype=np.uint32)
     betas = rng.integers(0, 2**32, size=(B, 4), dtype=np.uint32)
-    cws, cs, ocw, _ = vdpf_cuda.gen_batch(NONCE, th, tg, in_bits,
+    cws, cs, ocw, _ = vdpf_cuda.gen_batch(PRG2, th, tg, in_bits,
                                           to_cpu(s0s), to_cpu(alphas),
                                           to_cpu(betas))
     xs = rng.integers(0, 2**in_bits, size=B, dtype=np.uint32)
     want = vdpf_pallas.eval_points(
         NONCE, jh.xor_hash, jg, in_bits, party, s0s[:, party], _np(cws),
         _np(cs), _np(ocw), xs, block_rows=8, interpret=True)
-    got = vdpf_cuda.eval_points(NONCE, th, tg, in_bits, party,
+    got = vdpf_cuda.eval_points(PRG2, th, tg, in_bits, party,
                                 to_cpu(s0s[:, party]), cws, cs, ocw,
                                 to_cpu(xs))
     for g, w in zip(got, want):
@@ -255,12 +256,13 @@ def _u32(h):
 
 
 def test_golden_case_count():
-    assert len(_CASES) == 4
+    assert len(_CASES) == 5
 
 
 @pytest.mark.parametrize(
     "case", _CASES,
-    ids=lambda c: f"{c['hash']}-{c['group']}-{c['in_bits']}")
+    ids=lambda c: ("aes-" if c["prg"] == "aes" else "")
+    + f"{c['hash']}-{c['group']}-{c['in_bits']}")
 def test_golden(case):
     """Gen bytes, ys and pi~ of both parties at every x, prove_pi, and
     EvalAll: with the reference fold (eval_all_digest, eval_all_pi) where
@@ -274,8 +276,7 @@ def test_golden(case):
         hashes = Sha256(_u32(case["hash_key"]))
     else:
         hashes = Blake3(np.concatenate([_u32(h) for h in case["blake3_iv"]]))
-    d = Vdpf(n, g, ChaCha(2, (case["nonce_lo"], case["nonce_hi"])),
-             hashes=hashes, device="cpu")
+    d = Vdpf(n, g, golden_prg(case, 2), hashes=hashes, device="cpu")
     s0s = np.stack([_u32(h) for h in case["s0s"]])
     cws, cs, ocw, fail = d.gen(s0s, int(case["alpha"], 0),
                                _u32(case["beta"]))

@@ -23,7 +23,7 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch.ops import eval_all_cuda, vdpf_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import vdpf as tvdpf
-from test_torch_vdpf import NONCE, groups_pair, hashes_pair, to_cpu
+from test_torch_vdpf import NONCE, PRG2, groups_pair, hashes_pair, to_cpu
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -52,7 +52,7 @@ def test_eval_all_matches_xla(gname, in_bits, hname, fold, rng):
     beta = rng.integers(0, 2**32, size=(1, 4), dtype=np.uint32)
     alpha = int(rng.integers(0, 2**in_bits))
     cws, cs, ocw, _ = (t[0] for t in vdpf_cuda.gen_batch(
-        NONCE, th, tg, in_bits, to_cpu(s0s), to_cpu([alpha]), to_cpu(beta)))
+        PRG2, th, tg, in_bits, to_cpu(s0s), to_cpu([alpha]), to_cpu(beta)))
     wy, wpi = _jax_eval_all(jh, jg, in_bits, fold)(
         jblk.block(s0s[0, 0]), tblk.to_numpy(cws), tblk.to_numpy(cs),
         tblk.to_numpy(ocw))
