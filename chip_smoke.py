@@ -13,9 +13,11 @@ Phases, each printing one line (any failure exits non-zero):
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, byte-exact (tolerance 0: integer crypto), every tree kernel
      with the ChaCha PRG and with AES-128-MMO (``SAMPLE``-size batches;
-     the DPF, DCF, Half-Tree and VDPF walks at 16 and 48 or 128 bits, the
-     EvalAll expansions at several domains); the DCF kernels in each of
-     their five accumulator modes; the hash kernels also on the
+     the DPF, DCF, Half-Tree and VDPF walks at 16 and 48 or 128 bits; the
+     DPF and DCF EvalAll kernels for every group kind on both sides of
+     their plan's boundary, ``CHECK_PLANS``, and the DPF's seeds epilogue;
+     the Half-Tree and VDPF EvalAll at several domains); the DCF kernels
+     in each of their five accumulator modes; the hash kernels also on the
      reference's primitive vectors, and the flat proof chains on 4096
      points;
   4. golden: the reference's DPF, DCF, Half-Tree and VDPF vectors, ChaCha
@@ -45,7 +47,8 @@ Phases, each printing one line (any failure exits non-zero):
      (mul=2) with SHA-256 keyed by the bench's key;
   6. timing: CUDA-event times of each kernel and of the entry points at
      the main-path shapes, beside the bound of the same work; each timed
-     kernel is held against its plain version on the same inputs.
+     kernel is held against its plain version on the same inputs; each
+     EvalAll call's launches and their times.
 
 The last lines are the kernels JSON line, the card's name and power limit
 as nvidia-smi gives them, and the result JSON line.
@@ -75,7 +78,14 @@ DCF_MAIN_LOG2_KEYS = 20
 DCF_EVAL_ALL_BITS = (20, 24)
 HT_MAIN_LOG2_KEYS = 20
 HT_EVAL_ALL_BITS = (20, 24)
-CHECK_EVAL_ALL_BITS = (8, 16, 20)  # EvalAll domains of the kernel checks
+# The DPF and DCF EvalAll kernel checks: (in_bits, most) on both sides of
+# the plan's boundary (eval_all_cuda.plan: a top launch of k = n - b levels,
+# then subtrees of b = min(most, ceil(n / 2)) levels; the top's CTAs walk
+# where k > most), at K = 2 most = 8, and the default plan (most 12) at 20
+# bits, for every group kind; and the default plan's own boundary, K = 24,
+# at 23 and 25 bits for Uint(32).
+CHECK_PLANS = ((1, 4), (2, 4), (7, 4), (8, 4), (9, 4), (20, 12))
+CHECK_WIDE_BITS = (23, 25)
 CHECK_HT_EVAL_ALL_BITS = (1, 8, 16, 20)
 DPF_SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
 DCF_SOURCES = ("dcf_eval", "dcf_gen", "dcf_eval_all")
@@ -90,7 +100,7 @@ VDPF_SHA_KEY = (0xA1B2C3D4, 0x11223344, 0x55667788, 0x99AABBCC)
 AES_KEYS = tuple(bytes(range(16 * i, 16 * (i + 1))) for i in range(4))
 AES_LOG2_KEYS = 20
 AES_EVAL_ALL_BITS = (20, 24)
-CHECK_AES_EVAL_ALL_BITS = (8, 16)
+CHECK_AES_EVAL_ALL_BITS = (8, 16)  # the Half-Tree's and the VDPF's
 # The kernels each VDPF main path must launch: the fused eval, the DPF Gen
 # levels, the DPF expansion of EvalAll, and the hash kernels (H' in the
 # tree fold, the one-thread chain in prove).
@@ -381,7 +391,8 @@ def main() -> int:
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     sass = {name: sass_usage(cuobjdump, _build.library(name))
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
-                         "dcf_eval", "ht_eval")}
+                         "dcf_eval", "ht_eval", "dpf_eval_all",
+                         "dcf_eval_all")}
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
                              for h in ("blake3", "sha256")
@@ -416,10 +427,54 @@ def main() -> int:
     vdpf_hashes = {"blake3": Blake3(iv), "sha256": Sha256(skey)}
     vg = groups.Uint(32)
 
-    def tree_checks(P, tag, wide, ea_bits, ht_ea_bits, vdpf_ea_bits):
+    def eval_all_checks(P, tag):
+        """The DPF and DCF EvalAll kernels against their plain versions on
+        CHECK_PLANS for every group kind and both parties, the DPF's seeds
+        epilogue beside them, and the breadth-first schemes at 8 bits."""
+        plans = [(n, most, g) for n, most in CHECK_PLANS
+                 for g in dcf_groups.values()]
+        plans += [(n, eval_all_cuda.SUBTREE_LEVELS, groups.Uint(32))
+                  for n in CHECK_WIDE_BITS]
+        for n, most, g in plans:
+            s0s, beta = words((1, 2, 4), 32), words((1, 4))
+            alpha = blk.pack_inputs([int(rng.integers(0, 2**n))], n, dev)
+            cws = plain_dpf.gen(P[2], g, n, s0s, alpha, beta)[0]
+            dcws = plain_dcf.gen(P[4], g, n, "lt", s0s, alpha, beta)[0]
+            label = f"{tag} n={n} most={most} {g.name}"
+            for party in (0, 1):
+                s0 = s0s[0, party]
+                got = eval_all_cuda.eval_all(P[2], g, n, party, s0, cws,
+                                             most)
+                want = eval_all_cuda.eval_all_plain(P[2], g, n, party, s0,
+                                                    cws, most)
+                dgot = eval_all_cuda.dcf_eval_all(P[4], g, n, party, s0,
+                                                  dcws, most)
+                dwant = eval_all_cuda.dcf_eval_all_plain(P[4], g, n, party,
+                                                         s0, dcws, most)
+                if n == 8:
+                    want_bf = plain_dpf.eval_all(P[2], g, n, party, s0, cws)
+                    dwant_bf = plain_dcf.eval_all(P[4], g, n, party, s0,
+                                                  dcws)
+                    checks.append((f"{label} dpf_eval_all breadth-first "
+                                   f"party={party}", same(want, want_bf)))
+                    checks.append((f"{label} dcf_eval_all breadth-first "
+                                   f"party={party}", same(dwant, dwant_bf)))
+                checks.append((f"{label} dpf_eval_all party={party}",
+                               same(got, want)))
+                checks.append((f"{label} dcf_eval_all party={party}",
+                               same(dgot, dwant)))
+                if isinstance(g, groups.Bytes):  # the VDPF's epilogue
+                    got = eval_all_cuda.expand_leaves(P[2], n, party, s0,
+                                                      cws[:n], most)
+                    want = eval_all_cuda.expand_leaves_plain(
+                        P[2], n, party, s0, cws[:n], most)
+                    checks.append((f"{label} dpf_eval_all seeds "
+                                   f"party={party}", same(got, want)))
+
+    def tree_checks(P, tag, wide, ht_ea_bits, vdpf_ea_bits):
         """Every tree kernel with the PRGs ``P`` ({mul: PRG}) against its
         plain version: walks at 16 and ``wide`` bits, Gen at 16 and 48,
-        EvalAll at ``ea_bits``."""
+        EvalAll (eval_all_checks; the Half-Tree's at ``ht_ea_bits``)."""
         for n in (16, wide):
             s0s, betas = words((B, 2, 4)), words((B, 4))
             alphas = domain(words((B, 4)), n)
@@ -452,18 +507,7 @@ def main() -> int:
                                                  layout=layout)
                 checks.append((f"{tag} dpf_gen n={n} {layout}",
                                same(got, want)))
-        for n in ea_bits:
-            g = groups.Uint(128, 1 << 127)
-            s0s, beta = words((1, 2, 4)), words((1, 4))
-            cws = plain_dpf.gen(P[2], g, n, s0s, blk.pack_inputs(
-                [int(rng.integers(0, 2**n))], n, dev), beta)[0]
-            for party in (0, 1):
-                got = eval_all_cuda.eval_all(P[2], g, n, party,
-                                             s0s[0, party], cws)
-                want = plain_dpf.eval_all(P[2], g, n, party, s0s[0, party],
-                                          cws)
-                checks.append((f"{tag} dpf_eval_all n={n} party={party}",
-                               same(got, want)))
+        eval_all_checks(P, tag)
 
         for mode, g in dcf_groups.items():
             vmask = dcf_cuda.value_mask(g)
@@ -497,19 +541,6 @@ def main() -> int:
                                                      P[4], pred, g)
                     checks.append((f"{tag} dcf_gen {mode} n={n} {pred}",
                                    same(got, want)))
-        for mode in ("wrap", "xor", "mod128np"):
-            g = dcf_groups[mode]
-            for n in ea_bits:
-                s0s, beta = words((1, 2, 4)), words((1, 4))
-                cws = plain_dcf.gen(P[4], g, n, "lt", s0s, blk.pack_inputs(
-                    [int(rng.integers(0, 2**n))], n, dev), beta)[0]
-                for party in (0, 1):
-                    got = eval_all_cuda.dcf_eval_all(P[4], g, n, party,
-                                                     s0s[0, party], cws)
-                    want = plain_dcf.eval_all(P[4], g, n, party,
-                                              s0s[0, party], cws)
-                    checks.append((f"{tag} dcf_eval_all {mode} n={n} "
-                                   f"party={party}", same(got, want)))
 
         for n in (16, wide):
             s0s, betas = words((B, 2, 4)), words((B, 4))
@@ -614,10 +645,10 @@ def main() -> int:
                                        f"{fold} party={party}",
                                        same(got, want)))
 
-    tree_checks(CH, "chacha", 128, CHECK_EVAL_ALL_BITS, CHECK_HT_EVAL_ALL_BITS,
+    tree_checks(CH, "chacha", 128, CHECK_HT_EVAL_ALL_BITS,
                 CHECK_VDPF_EVAL_ALL_BITS)
     tree_checks(AES, "aes", 48, CHECK_AES_EVAL_ALL_BITS,
-                CHECK_AES_EVAL_ALL_BITS, CHECK_AES_EVAL_ALL_BITS)
+                CHECK_AES_EVAL_ALL_BITS)
     # The hash kernels on random rows, on the reference's primitive
     # vectors, and the one-thread chains on CHAIN_ROWS points.
     a_rows, b_rows, msgs = words((B, 4)), words((B, 4)), words((B, 4, 4))
@@ -1066,17 +1097,19 @@ def main() -> int:
 
     # 6. timing at the main-path shapes -----------------------------------
     def expanders(scheme, S, P):
-        """The EvalAll expansion of S's largest domain through the kernels
-        and through their plain versions: (kernel, plain)."""
+        """EvalAll of S's largest domain through the kernels and through
+        their plain versions: (kernel, plain). The DPF and DCF are the
+        whole call, finalize included; the Half-Tree its expansion."""
         n = S["n_ea"]
-        if scheme == "dpf":
-            args = (P[2], n, 0, S["ea_seeds"][0], S["ea_key"][n])
-            run, plain = (eval_all_cuda.expand_leaves,
-                          eval_all_cuda.expand_packed_plain)
-        elif scheme == "dcf":
-            args = (P[4], n, 0, S["ea_seeds"][0], S["ea_key"][n], "wrap")
-            run, plain = (eval_all_cuda.dcf_expand_leaves,
-                          eval_all_cuda.dcf_expand_packed_plain)
+        if scheme in ("dpf", "dcf"):
+            seed = blk.words(S["ea_seeds"][0], dev)
+            key = blk.words(S["ea_key"][n], dev)
+            run, plain = ((eval_all_cuda.eval_all,
+                           eval_all_cuda.eval_all_plain) if scheme == "dpf"
+                          else (eval_all_cuda.dcf_eval_all,
+                                eval_all_cuda.dcf_eval_all_plain))
+            args = (P[2 if scheme == "dpf" else 4], S["g"], n, 0, seed, key)
+            return (lambda: run(*args), lambda: plain(*args))
         else:
             args = (P[1], n, 0, hash_key, S["ea_seeds"][0], S["ea_key"][n][0])
             run, plain = (eval_all_cuda.ht_expand_leaves,
@@ -1149,8 +1182,11 @@ def main() -> int:
              lambda: dpf_cuda.gen_packed_plain(*gv),
              nd * MAIN_BITS * (4 if aes else 2), 0,
              nd * (32 + 4 + (MAIN_BITS + 1) * 32 + 2 * 16 + 2 * 4)),
+            # the root 16 B, 20 B of cw a level and the output CW 16 B in;
+            # a 16 B share a leaf out. 2^n - 1 expansions (the CTAs' walks
+            # to their subtree roots are not work the function needs).
             ("dpf_eval_all", dk, dp, ((1 << n_ea) - 1) * (2 if aes else 1),
-             0, 16 + n_ea * 20 + (1 << n_ea) * (16 + 4)),
+             0, 16 + n_ea * 20 + 16 + (1 << n_ea) * 16),
             # seeds 16 B, cw rows 32 B a level, x 4 B in; acc, seed 16 B
             # and t 4 B out.
             ("dcf_eval", lambda: dcf_cuda.eval_packed(*cev),
@@ -1162,9 +1198,10 @@ def main() -> int:
              lambda: dcf_cuda.gen_packed_plain(*cgv),
              nc * MAIN_BITS * 2 * mul_eval, 0,
              nc * (32 + 4 + 16 + (MAIN_BITS + 1) * 32)),
-            # root and cw rows in; each leaf's seed, t and acc out.
+            # the root 16 B, cw rows 32 B a level and the final value CW
+            # 16 B in; a 16 B share a leaf out.
             ("dcf_eval_all", ck, cp, ((1 << cn_ea) - 1) * mul_eval, 0,
-             16 + 16 + cn_ea * 32 + (1 << cn_ea) * (16 + 4 + 16)),
+             16 + cn_ea * 32 + 16 + (1 << cn_ea) * 16),
             # seed 16 B, n - 1 CWs of 16 B, the last row's 20 B and x 4 B
             # in; high 16 B and low 4 B out. One block a level.
             ("ht_eval", lambda: ht_cuda.eval_packed(*hev),
@@ -1245,6 +1282,29 @@ def main() -> int:
             return 1
     by_name = {r["name"]: r for r in rows}
 
+    def launch_times(fn):
+        """One call of ``fn`` after a warm-up: [kernel, ms] for each launch
+        it makes, from CUDA events recorded just before and just after the
+        C entry point (so an idle card waiting on the host counts too)."""
+        fn()
+        torch.cuda.synchronize()
+        marks, launch = [], _build.launch
+
+        def timed(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            launch(*args, **kwargs)
+            ev[1].record()
+            marks.append((kwargs.get("kernel") or args[0], ev))
+
+        _build.launch = timed
+        try:
+            fn()
+        finally:
+            _build.launch = launch
+        torch.cuda.synchronize()
+        return [[k, ev[0].elapsed_time(ev[1])] for k, ev in marks]
+
     def entry_timing(scheme, P, M, extra=None):
         """End-to-end times of one path's entry points at its shapes, with
         the kernels' times beside them."""
@@ -1258,10 +1318,11 @@ def main() -> int:
                                              M["betas"]), 10)
         eval_ms = cuda_ms(ev, 10)
         eas = M["ea"]
-        ea_ms = {n: cuda_ms(lambda n=n: eas[n].eval_all(
+        ea_call = {n: (lambda n=n: eas[n].eval_all(
             0, M["ea_seeds"][0], *(M["ea_key"][n] if scheme == "half_tree"
-                                   else (M["ea_key"][n],))), 5)
-                 for n in eas}
+                                   else (M["ea_key"][n],)))) for n in eas}
+        ea_ms = {n: cuda_ms(call, 5) for n, call in ea_call.items()}
+        ea_launch_ms = {n: launch_times(call) for n, call in ea_call.items()}
         short = {"dpf": "dpf", "dcf": "dcf", "half_tree": "ht"}[scheme]
         tag = "_aes" if isinstance(P[1], AesMmo) else ""
         log("timing", scheme=scheme, prg=type(P[1]).__name__, card=kind,
@@ -1275,6 +1336,8 @@ def main() -> int:
             eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
                                   for n, ms in ea_ms.items()},
             eval_all_ms=ea_ms,
+            eval_all_launches={n: len(v) for n, v in ea_launch_ms.items()},
+            eval_all_launch_ms=ea_launch_ms,
             eval_all_kernel_ms=by_name[f"{short}_eval_all{tag}"]["ms"],
             main_path_s=M["main_s"], **(extra or {}),
             clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
@@ -1304,6 +1367,24 @@ def main() -> int:
                       vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)))
     chain_ms = {name: cuda_ms(lambda h=v["d"].hashes: vdpf_cuda.prove(
         h, pts, cs0), 3) for name, v in vmain.items()}
+
+    def once_ms(fn):
+        """Host-clock time of one call, synchronised on both sides."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # The chains' plain versions (one call each: Python ints on the host)
+    # and bounds: CHAIN_ROWS H' of 64 B in, cs 64 B in, the proof 64 B out.
+    # One thread's dependency chain sets their pace, not these bounds.
+    chain_plain_ms = {name: once_ms(lambda h=v["d"].hashes:
+                                    vdpf_cuda.prove_plain(h, pts, cs0))
+                      for name, v in vmain.items()}
+    chain_bound = {name: bound(CHAIN_ROWS * hash_alu(name, "hash64"),
+                               CHAIN_ROWS * 64 + 64 + 64)
+                   for name in vmain}
     t0 = time.perf_counter()
     draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
     draw_s = time.perf_counter() - t0
@@ -1348,7 +1429,10 @@ def main() -> int:
         vdpf_eval_sha256_kernel_ms=sha_eval[0],
         vdpf_eval_sha256_plain_ms=sha_eval[1],
         vdpf_eval_sha256_bound_ms=sha_eval[2],
-        chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms}
+        chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms,
+                      "plain_ms": chain_plain_ms[n],
+                      "bound_ms": chain_bound[n][0],
+                      "bound_by": chain_bound[n][1]}
                   for n, ms in chain_ms.items()},
         vdpf_eval_all_items_per_s={
             n: {k: (1 << k) / (ms / 1e3) for k, ms in t[2].items()}

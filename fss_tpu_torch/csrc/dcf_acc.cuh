@@ -17,7 +17,9 @@
 //   kMod128np  as kMod128, but summed exactly in 5 words (160 bits): at
 //              most 2 * 128 terms below 2^127 stay below 2^135.
 //
-// Party negation distributes over the sum, so it is left to the finalize.
+// Party negation distributes over the sum, so it is left to the finalize,
+// which acc_value starts: the raw sum -> its group value (the device form of
+// fss_tpu_torch/ops/dcf_cuda.py:acc_to_value).
 
 #pragma once
 
@@ -70,6 +72,35 @@ __device__ __forceinline__ void accumulate(uint32_t acc[Acc<M>::kWords],
                                            const uint32_t vmask[4]) {
   vfix<M>(c, vmask);
   acc_add<M>(acc, c);
+}
+
+// v = the group value of the raw accumulator `acc` (g: group.cuh's mask and
+// modulus of the group).
+template <int M>
+__device__ __forceinline__ void acc_value(const Group& g,
+                                          const uint32_t acc[Acc<M>::kWords],
+                                          uint32_t v[4]) {
+  if constexpr (M == kMod128np) {
+    mod_reduce160(acc, g.mod, v);  // the exact sum, below 2^135
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) v[w] = acc[w];
+    if constexpr (M == kWrap || M == kMod128) {  // decoded already
+#pragma unroll
+      for (int w = 0; w < 4; ++w) v[w] &= g.mask[w];
+    } else if constexpr (M == kMod64) {
+      // The exact sum, below 2^(bits+8) <= 2^72: (hi 2^64 + lo) mod m with
+      // 2^64 mod m folded in by double-and-add over hi's 8 bits.
+      const uint64_t m = lo64(g.mod);
+      const uint64_t c = (0ull - m) % m;
+      uint64_t h = 0;
+      for (int bit = 7; bit >= 0; --bit) {
+        h = add_mod64(h, h, m);
+        if ((v[2] >> bit) & 1u) h = add_mod64(h, c, m);
+      }
+      set_lo64(v, add_mod64(lo64(v) % m, h, m));
+    }
+  }
 }
 
 }  // namespace fss

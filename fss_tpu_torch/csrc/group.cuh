@@ -1,5 +1,6 @@
 // The output groups on the device: 128-bit lane arithmetic and the exact
-// per-level group operations of DCF Gen (dcf_gen.cu).
+// group operations of DCF Gen's levels (dcf_gen.cu) and of the DPF and DCF
+// EvalAll kernels' leaf finalize (dpf_eval_all.cu, dcf_eval_all.cu).
 //
 // Device counterpart of fss_tpu_torch/groups.py. A value is 4 little-endian
 // uint32 lanes. Every group of the port falls in one of five kinds, which
@@ -77,6 +78,13 @@ __device__ __forceinline__ void set_lo64(uint32_t a[4], uint64_t x) {
   a[0] = (uint32_t)x; a[1] = (uint32_t)(x >> 32); a[2] = 0u; a[3] = 0u;
 }
 
+// x + y mod m for x, y < m <= 2^64: one conditional subtract.
+__device__ __forceinline__ uint64_t add_mod64(uint64_t x, uint64_t y,
+                                              uint64_t m) {
+  const uint64_t s = x + y;
+  return (s < x || s >= m) ? s - m : s;
+}
+
 // (hi, v) <<= 1 as one 256-bit value: bit 127 of v moves into hi.
 __device__ __forceinline__ void shl1_into(uint32_t hi[4], uint32_t v[4]) {
   hi[3] = (hi[3] << 1) | (hi[2] >> 31);
@@ -98,6 +106,33 @@ __device__ __forceinline__ void mod_reduce127(uint32_t v[4],
   shl1_into(z, v);  // bit 126 to the top; z stays 0
   for (int i = 0; i < 127; ++i) {
     shl1_into(r, v);
+    if (ge128(r, m)) sub128(r, m);
+  }
+#pragma unroll
+  for (int w = 0; w < 4; ++w) v[w] = r[w];
+}
+
+// v = x mod m for x < 2^135 in 5 words (the DCF's exact kMod128np sum,
+// dcf_acc.cuh), m < 2^127: MSB-first shift-subtract over bits 134..0, the
+// remainder r < m taking one bit of x per step (so 2r + 1 < 2^128).
+__device__ __forceinline__ void mod_reduce160(const uint32_t x[5],
+                                              const uint32_t m[4],
+                                              uint32_t v[4]) {
+  // Bits 134..0 of x to the top of a 160-bit window.
+  uint32_t a[5] = {x[0] << 25, (x[1] << 25) | (x[0] >> 7),
+                   (x[2] << 25) | (x[1] >> 7), (x[3] << 25) | (x[2] >> 7),
+                   (x[4] << 25) | (x[3] >> 7)};
+  uint32_t r[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 135; ++i) {
+    r[3] = (r[3] << 1) | (r[2] >> 31);
+    r[2] = (r[2] << 1) | (r[1] >> 31);
+    r[1] = (r[1] << 1) | (r[0] >> 31);
+    r[0] = (r[0] << 1) | (a[4] >> 31);
+    a[4] = (a[4] << 1) | (a[3] >> 31);
+    a[3] = (a[3] << 1) | (a[2] >> 31);
+    a[2] = (a[2] << 1) | (a[1] >> 31);
+    a[1] = (a[1] << 1) | (a[0] >> 31);
+    a[0] <<= 1;
     if (ge128(r, m)) sub128(r, m);
   }
 #pragma unroll
@@ -133,10 +168,8 @@ __device__ __forceinline__ void gadd(const Group& g, uint32_t a[4],
     add128(a, b);
 #pragma unroll
     for (int w = 0; w < 4; ++w) a[w] &= g.mask[w];
-  } else if (M == kMod64) {  // a, b < m <= 2^64: one conditional subtract
-    const uint64_t x = lo64(a), y = lo64(b), m = lo64(g.mod);
-    const uint64_t s = x + y;
-    set_lo64(a, (s < x || s >= m) ? s - m : s);
+  } else if (M == kMod64) {
+    set_lo64(a, add_mod64(lo64(a), lo64(b), lo64(g.mod)));
   } else {  // kMod128np: a, b < m < 2^127, so a + b does not wrap
     add128(a, b);
     if (ge128(a, g.mod)) sub128(a, g.mod);

@@ -8,29 +8,33 @@ Counterpart of ``fss_tpu.ops.eval_all_pallas``; the kernels replace
 ``eval_all_pallas.ht_eval_all`` with the ChaCha PRG, and with AES-128-MMO
 they are the card's AES EvalAll, which the JAX package runs as XLA. Each
 wrapper takes the scheme's PRG object (ChaCha or AesMmo). Nodes are packed
-(s, t) [N, 4] int32 blocks with t in the clamped bit; a DCF node also carries its raw value
-accumulator [N, 4 or 5] (``ops/dcf_cuda.py``); a Half-Tree node is the
-whole 128-bit node, which holds t in the same bit.
+(s, t) [N, 4] int32 blocks with t in the clamped bit; a DCF node also
+carries its raw value accumulator (``ops/dcf_cuda.py``); a Half-Tree node
+is the whole 128-bit node, which holds t in the same bit.
 
-Split: every level runs through the kernel, the root's first, in launches
-of up to :func:`levels_per_launch` levels (the remainder first, so the
-last launches expand full strides): 3 with ChaCha, 1 with AES, whose
-unrolled blocks at 2-3 levels a launch take ptxas minutes a kernel and
-whose levels are bound by their table lookups, not by the nodes' round
-trip through memory. There is no host-side prefix and no
-domain-size threshold: a prefix of the plain PRG in torch glue would cost
-hundreds of tiny launches per level, and one kernel launch per level
-stride costs a few microseconds at any width. The last launch writes the
-seeds with the clamped bit cleared and the t bits as their own plane.
+DPF and DCF: two launches a domain (one at in_bits = 1), at any in_bits
+(:func:`plan`). The 2^n leaves are cut into 2^k subtrees of b =
+:func:`subtree_levels` levels, k = n - b; the top launch expands the
+first k levels and writes the 2^k subtree roots to a scratch buffer, and
+each CTA of the body launch expands one subtree in shared memory and writes
+its leaves' finished shares, the group finalize done in the kernel
+(``csrc/subtree.cuh``), so no torch op runs over the leaves. The DPF
+kernel's seeds epilogue writes the leaf seeds and t bits instead
+(:func:`expand_leaves`), which the VDPF hashes. The plain versions
+(:func:`eval_all_plain`, :func:`expand_leaves_plain`,
+:func:`dcf_eval_all_plain`) follow the same plan, ``most`` included: each
+launch's walks from the root (batched), then its breadth-first levels.
 
-The Half-Tree counts its conversion level as one of its in_bits levels:
-the n-1 doubling levels and the conversion split into launches the same
-way, and the last launch ends with the conversion, which writes 2 leaves
-a node, (high, low), in x order.
+Half-Tree: every level runs through the kernel, the root's first, in
+launches of up to :func:`levels_per_launch` levels (the remainder first,
+so the last launches expand full strides): 3 with ChaCha, 1 with AES,
+whose unrolled blocks at 2-3 levels a launch take ptxas minutes a kernel.
+It counts its conversion level as one of its in_bits levels, and the last
+launch ends with the conversion, which writes 2 leaves a node, (high,
+low), in x order.
 
 CUDA tensors go to the kernel (a failing build or launch raises), CPU
-tensors to the plain PyTorch versions :func:`expand_packed_plain`,
-:func:`dcf_expand_packed_plain` and :func:`ht_expand_packed_plain`.
+tensors to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
-from fss_tpu_torch.block import i32, u64
+from fss_tpu_torch.block import i32
 from fss_tpu_torch.ops import dcf_cuda, ht_cuda, vdpf_cuda
 from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.schemes import _tree
@@ -48,14 +52,15 @@ from fss_tpu_torch.schemes import dpf as _dpf
 from fss_tpu_torch.schemes import half_tree_dpf as _ht
 from fss_tpu_torch.schemes import vdpf as _vdpf
 
-LEVELS_PER_LAUNCH = 3
-AES_LEVELS_PER_LAUNCH = 1  # fss::kMaxLevels of csrc/prg.cuh
+SUBTREE_LEVELS = 12  # fss::kMaxSubtreeLevels of csrc/subtree.cuh
+LEVELS_PER_LAUNCH = 3  # the Half-Tree's; fss::kMaxLevels of csrc/prg.cuh
+AES_LEVELS_PER_LAUNCH = 1
 
-_EXPAND_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
-                _build.I64, _build.INT, _build.P, _build.P)
-_DCF_EXPAND_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P,
-                    _build.P, _build.P, _build.I64, _build.INT, _build.INT,
-                    *(_build.U32,) * 4, _build.P, _build.P)
+_DPF_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P, _build.P,
+             *(_build.INT,) * 4, *(_build.U32,) * 8, _build.P, _build.P)
+_DCF_ARGS = (_build.P, _build.P, _build.P, _build.P, _build.I64, _build.P,
+             _build.P, *(_build.INT,) * 4, *(_build.U32,) * 12, _build.P,
+             _build.P)
 _HT_EXPAND_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
                    _build.I64, _build.INT, _build.INT, *(_build.U32,) * 4,
                    _build.P, _build.P)
@@ -100,61 +105,156 @@ def _launch_levels(in_bits: int, party: int, prg):
 
 
 # ---------------------------------------------------------------------------
+# The DPF and DCF plan: two launches a domain, one CTA a subtree
+# ---------------------------------------------------------------------------
+
+def subtree_levels(in_bits: int, most: int = SUBTREE_LEVELS) -> int:
+    """The levels b each body CTA expands below its subtree root: half the
+    domain's levels (rounded up), at most ``most``."""
+    return min(most, (in_bits + 1) // 2)
+
+
+def plan(in_bits: int, most: int = SUBTREE_LEVELS):
+    """The launches of one DPF or DCF EvalAll (``csrc/subtree.cuh``):
+    [(first, walk, b)], a launch running tree levels first .. first + walk
+    + b - 1, its CTAs each walking ``walk`` levels and expanding ``b``. At
+    in_bits = 1 one launch; else the top launch, levels 0 .. k-1 with k =
+    in_bits - subtree_levels(in_bits), split the same way (2^(k - t) CTAs
+    walk k - t levels and expand t = subtree_levels(k)), and the body, 2^k
+    CTAs of subtree_levels(in_bits) levels."""
+    b = subtree_levels(in_bits, most)
+    k = in_bits - b
+    if k == 0:
+        return [(0, 0, b)]
+    top = subtree_levels(k, most)
+    return [(0, k - top, top), (k, 0, b)]
+
+
+def _check_key(s0, cws, in_bits, party, rows, words, most):
+    if in_bits < 1:
+        raise ValueError(f"EvalAll needs in_bits >= 1, got {in_bits}")
+    if party not in (0, 1):
+        raise ValueError(f"party must be 0 or 1, got {party}")
+    if not 1 <= most <= SUBTREE_LEVELS:
+        raise ValueError(f"most must be in 1..{SUBTREE_LEVELS}, got {most}")
+    dev = s0.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _build.check(s0, "s0", dev, [(4,)])
+    if cws.dim() != 2 or cws.shape[0] < rows or cws.shape[1] < words:
+        raise ValueError(f"cws must be [>={rows}, >={words}], got "
+                         f"{tuple(cws.shape)}")
+    if cws.device != dev or cws.dtype != torch.int32:
+        raise ValueError("cws must be int32 on s0's device")
+    if cws.stride(1) != 1:
+        raise ValueError("cws words must be contiguous")
+    return dev
+
+
+def _walk_bits(walk: int, device) -> torch.Tensor:
+    """The path bits [2^walk, walk] (MSB first) from the root to each node
+    of level ``walk``, in x order."""
+    q = torch.arange(1 << walk, dtype=torch.int32, device=device)
+    return blk.input_bits_msb_first(q[:, None], walk)
+
+
+def _rows(cws: torch.Tensor, first: int) -> int:
+    """The device address of cw row ``first``."""
+    return cws.data_ptr() + first * cws.stride(0) * cws.element_size()
+
+
+# ---------------------------------------------------------------------------
 # DPF
 # ---------------------------------------------------------------------------
 
-def expand_packed(roots: torch.Tensor, cw_rows: torch.Tensor, prg,
-                  final: bool = False):
-    """Expand packed nodes [N, 4] by L = cw_rows.shape[0] levels (1..3)
-    with ``prg`` (ChaCha or AesMmo, mul=2).
-
-    cw_rows: [L, 8] (or [L, >=5]) int32 cw rows of those levels. Returns
-    the packed children [N << L, 4] in x order, or with ``final`` the
-    pair (seeds [N << L, 4] with the clamped bit clear, t [N << L]).
-    """
-    dev = _check(roots, cw_rows, prg)
-    arg, tag = _build.prg_arg(prg, 2)
-    if dev.type == "cpu":
-        return expand_packed_plain(roots, cw_rows, prg, final)
-    L = cw_rows.shape[0]
-    n = roots.shape[0] << L
-    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    t = torch.empty((n,), dtype=torch.int32, device=dev) if final else None
-    fn = _build.function("dpf_eval_all", "fss_dpf_expand", _EXPAND_ARGS)
-    _build.launch(
-        "dpf_eval_all", fn, roots.data_ptr(), cw_rows.data_ptr(),
-        cw_rows.stride(0), out.data_ptr(),
-        t.data_ptr() if final else None, roots.shape[0], L, arg,
-        device=dev, kernel="dpf_eval_all" + tag)
-    return (out, t) if final else out
+# The DPF kernel's epilogues: the shares of a group kind, the seeds and t
+# bits, or packed nodes for the next launch (csrc/dpf_eval_all.cu).
+_DPF_EPILOGUES = (*dcf_cuda.MODES, "seeds", "nodes")
 
 
-def expand_packed_plain(roots, cw_rows, prg, final: bool = False):
-    """Plain PyTorch version of :func:`expand_packed`, on any device."""
-    _check(roots, cw_rows, prg)
-    _build.check_prg(prg, 2)
-    s, t = _tree.split_seed(roots)
-    for row in cw_rows:
-        s, t = _tree.expand_level(prg, s, t, *_tree.unpack_cw_row(row))
-    return (s, t) if final else blk.set_lsb(s, t)
-
-
-def expand_leaves(prg2, in_bits: int, party: int, s0: torch.Tensor,
-                  cws: torch.Tensor, expand=expand_packed):
-    """Expand one key to its leaf layer: (seeds [2^n, 4], t [2^n]) in x
-    order. ``expand`` is the per-launch step (the plain version can be
-    passed to time the same sequence without the kernel)."""
-    nodes = blk.set_lsb(blk.clear_lsb(s0), party)[None, :].contiguous()
-    for lo, hi in _launch_levels(in_bits, party, prg2):
-        nodes = expand(nodes, cws[lo:hi], prg2, final=hi == in_bits)
-    return nodes
+def _dpf_launches(prg2, group, in_bits, party, s0, cws, most, out, t=None):
+    """The plan's launches into ``out`` (shares, or with ``t`` the seeds and
+    t bits); the top launch's roots go to a scratch buffer."""
+    arg, tag = _build.prg_arg(prg2, 2)
+    fn = _build.function("dpf_eval_all", "fss_dpf_eval_all", _DPF_ARGS)
+    roots = None
+    for first, walk, b in plan(in_bits, most):
+        if first + walk + b < in_bits:
+            dst = torch.empty((1 << (first + walk + b), 4),
+                              dtype=torch.int32, device=s0.device)
+            epilogue = "nodes"
+        else:
+            dst = out
+            epilogue = "seeds" if t is not None else dcf_cuda.group_mode(group)
+        mask, mod = (dcf_cuda.gen_params(group) if epilogue in dcf_cuda.MODES
+                     else ((0,) * 4,) * 2)
+        _build.launch(
+            "dpf_eval_all", fn, s0.data_ptr(),
+            None if roots is None else roots.data_ptr(), _rows(cws, first),
+            cws.stride(0), dst.data_ptr(),
+            t.data_ptr() if epilogue == "seeds" else None,
+            walk if roots is None else first, b, party,
+            _DPF_EPILOGUES.index(epilogue), *mask, *mod, arg,
+            device=s0.device, kernel="dpf_eval_all" + tag)
+        roots = dst
 
 
 def eval_all(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
-             cws: torch.Tensor) -> torch.Tensor:
-    """Full-domain DPF evaluation of one key: [2^in_bits, 4] shares in
-    x order. ``prg2`` is the scheme's mul=2 PRG (ChaCha or AesMmo)."""
-    s, t = expand_leaves(prg2, in_bits, party, s0, cws)
+             cws: torch.Tensor, most: int = SUBTREE_LEVELS) -> torch.Tensor:
+    """Full-domain DPF evaluation of one key: [2^in_bits, 4] shares in x
+    order, for every group. ``prg2`` is the scheme's mul=2 PRG (ChaCha or
+    AesMmo); s0 the party's seed [4]; cws its wire rows [in_bits+1, 8].
+    The :func:`plan`'s launches of ``csrc/dpf_eval_all.cu`` (``most``: its
+    cap on :func:`subtree_levels`)."""
+    dev = _check_key(s0, cws, in_bits, party, in_bits + 1, 5, most)
+    _build.check_prg(prg2, 2)
+    if dev.type == "cpu":
+        return eval_all_plain(prg2, group, in_bits, party, s0, cws, most)
+    out = torch.empty((1 << in_bits, 4), dtype=torch.int32, device=dev)
+    _dpf_launches(prg2, group, in_bits, party, s0, cws, most, out)
+    return out
+
+
+def expand_leaves(prg2, in_bits: int, party: int, s0: torch.Tensor,
+                  cws: torch.Tensor, most: int = SUBTREE_LEVELS):
+    """Expand one key to its leaf layer: (seeds [2^n, 4] with the clamped
+    bit clear, t [2^n]) in x order, the kernel's seeds epilogue; cws are
+    rows [>=in_bits, >=5] (the VDPF's have no output row)."""
+    dev = _check_key(s0, cws, in_bits, party, in_bits, 5, most)
+    _build.check_prg(prg2, 2)
+    if dev.type == "cpu":
+        return expand_leaves_plain(prg2, in_bits, party, s0, cws, most)
+    out = torch.empty((1 << in_bits, 4), dtype=torch.int32, device=dev)
+    t = torch.empty((1 << in_bits,), dtype=torch.int32, device=dev)
+    _dpf_launches(prg2, None, in_bits, party, s0, cws, most, out, t)
+    return out, t
+
+
+def expand_leaves_plain(prg2, in_bits: int, party: int, s0, cws,
+                        most: int = SUBTREE_LEVELS):
+    """Plain PyTorch version of :func:`expand_leaves`, on any device, on
+    the kernel's plan: each launch's walks from the root, then its
+    breadth-first levels."""
+    _check_key(s0, cws, in_bits, party, in_bits, 5, most)
+    _build.check_prg(prg2, 2)
+    s = t = None
+    for first, walk, b in plan(in_bits, most):
+        if s is None:
+            bits = _walk_bits(walk, s0.device)
+            B = bits.shape[0]
+            s, t = _dpf.walk(prg2, walk, party, s0.expand(B, 4),
+                             lambda i: cws[i].expand(B, cws.shape[1]), bits)
+        for i in range(first + walk, first + walk + b):
+            s, t = _tree.expand_level(prg2, s, t,
+                                      *_tree.unpack_cw_row(cws[i]))
+    return s, t
+
+
+def eval_all_plain(prg2, group, in_bits: int, party: int, s0, cws,
+                   most: int = SUBTREE_LEVELS) -> torch.Tensor:
+    """Plain PyTorch version of :func:`eval_all`, on any device."""
+    _check_key(s0, cws, in_bits, party, in_bits + 1, 5, most)
+    s, t = expand_leaves_plain(prg2, in_bits, party, s0, cws, most)
     return _dpf.finalize_leaves(group, party, s, t, cws[in_bits, 0:4])
 
 
@@ -162,90 +262,64 @@ def eval_all(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
 # DCF
 # ---------------------------------------------------------------------------
 
-def _check_dcf(roots, acc, cw_rows, prg, group_mode):
-    dev = _check(roots, cw_rows, prg, row_words=8)
-    if group_mode not in dcf_cuda.MODES:
-        raise ValueError(f"group_mode must be one of {dcf_cuda.MODES}, got "
-                         f"{group_mode!r}")
-    _build.check(acc, "acc", dev,
-                 [(roots.shape[0], dcf_cuda.acc_words(group_mode))])
-    return dev
-
-
-def dcf_expand_packed(roots: torch.Tensor, acc: torch.Tensor,
-                      cw_rows: torch.Tensor, prg, group_mode: str = "wrap",
-                      vmask=dcf_cuda.FULL, final: bool = False):
-    """Expand DCF nodes by L = cw_rows.shape[0] levels (1..3) with ``prg``
-    (ChaCha or AesMmo, mul=4).
-
-    roots [N, 4] packed (s, t); acc [N, 4 or 5] their raw accumulators;
-    cw_rows [L, 8] int32 cw rows of those levels; ``group_mode`` and
-    ``vmask`` as for ``dcf_cuda.eval_packed``. Returns (children
-    [N << L, 4] packed, acc [N << L, 4 or 5]) in x order, or with ``final``
-    (seeds [N << L, 4] with the clamped bit clear, t [N << L], acc).
-    """
-    dev = _check_dcf(roots, acc, cw_rows, prg, group_mode)
-    arg, tag = _build.prg_arg(prg, 4)
-    if dev.type == "cpu":
-        return dcf_expand_packed_plain(roots, acc, cw_rows, prg, group_mode,
-                                       vmask, final)
-    L = cw_rows.shape[0]
-    n = roots.shape[0] << L
-    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    acc_out = torch.empty((n, acc.shape[1]), dtype=torch.int32, device=dev)
-    t = torch.empty((n,), dtype=torch.int32, device=dev) if final else None
-    fn = _build.function("dcf_eval_all", "fss_dcf_expand", _DCF_EXPAND_ARGS)
-    _build.launch(
-        "dcf_eval_all", fn, roots.data_ptr(), acc.data_ptr(),
-        cw_rows.data_ptr(), cw_rows.stride(0), out.data_ptr(),
-        acc_out.data_ptr(), t.data_ptr() if final else None, roots.shape[0],
-        L, dcf_cuda.MODES.index(group_mode),
-        *(int(m) & blk.MASK32 for m in vmask), arg, device=dev,
-        kernel="dcf_eval_all" + tag)
-    return (out, t, acc_out) if final else (out, acc_out)
-
-
-def dcf_expand_packed_plain(roots, acc, cw_rows, prg,
-                            group_mode: str = "wrap", vmask=dcf_cuda.FULL,
-                            final: bool = False):
-    """Plain PyTorch version of :func:`dcf_expand_packed`, on any
-    device."""
-    _check_dcf(roots, acc, cw_rows, prg, group_mode)
-    _build.check_prg(prg, 4)
-    add = dcf_cuda.accumulator(group_mode, vmask)
-    s, t = _tree.split_seed(roots)
-    v = u64(acc)
-    for row in cw_rows:
-        s, t, v = _dcf.expand_level(prg, s, t, v, row, add)
-    return (s, t, i32(v)) if final else (blk.set_lsb(s, t), i32(v))
-
-
-def dcf_expand_leaves(prg4, in_bits: int, party: int, s0: torch.Tensor,
-                      cws: torch.Tensor, group_mode: str = "wrap",
-                      vmask=dcf_cuda.FULL, expand=dcf_expand_packed):
-    """Expand one DCF key to its leaf layer: (seeds [2^n, 4], t [2^n],
-    acc [2^n, 4 or 5]) in x order. ``expand`` is the per-launch step (the
-    plain version can be passed to time the same sequence without the
-    kernel)."""
-    nodes = blk.set_lsb(blk.clear_lsb(s0), party)[None, :].contiguous()
-    acc = torch.zeros((1, dcf_cuda.acc_words(group_mode)), dtype=torch.int32,
-                      device=nodes.device)
-    for lo, hi in _launch_levels(in_bits, party, prg4):
-        if hi == in_bits:
-            return expand(nodes, acc, cws[lo:hi], prg4, group_mode, vmask,
-                          final=True)
-        nodes, acc = expand(nodes, acc, cws[lo:hi], prg4, group_mode, vmask)
-
-
 def dcf_eval_all(prg4, group, in_bits: int, party: int, s0: torch.Tensor,
-                 cws: torch.Tensor) -> torch.Tensor:
+                 cws: torch.Tensor,
+                 most: int = SUBTREE_LEVELS) -> torch.Tensor:
     """Full-domain DCF evaluation of one key: [2^in_bits, 4] shares in x
     order, for every group. ``prg4`` is the scheme's mul=4 PRG (ChaCha or
-    AesMmo)."""
-    s, t, acc = dcf_expand_leaves(prg4, in_bits, party, s0, cws,
-                                  dcf_cuda.group_mode(group),
-                                  dcf_cuda.value_mask(group))
-    return dcf_cuda.finalize(group, party, acc, s, t, cws[in_bits, 4:8])
+    AesMmo); s0 the party's seed [4]; cws its wire rows [in_bits+1, 8].
+    The :func:`plan`'s launches of ``csrc/dcf_eval_all.cu``; the top
+    launch's roots and their accumulators go to scratch buffers."""
+    dev = _check_key(s0, cws, in_bits, party, in_bits + 1, 8, most)
+    arg, tag = _build.prg_arg(prg4, 4)
+    if dev.type == "cpu":
+        return dcf_eval_all_plain(prg4, group, in_bits, party, s0, cws, most)
+    mode = dcf_cuda.group_mode(group)
+    mask, mod = dcf_cuda.gen_params(group)
+    vmask = [int(m) & blk.MASK32 for m in dcf_cuda.value_mask(group)]
+    fn = _build.function("dcf_eval_all", "fss_dcf_eval_all", _DCF_ARGS)
+    roots = acc = None
+    for first, walk, b in plan(in_bits, most):
+        n = 1 << (first + walk + b)  # the nodes of the launch's last level
+        last = first + walk + b == in_bits
+        out = torch.empty((n, 4), dtype=torch.int32, device=dev)
+        acc_out = None if last else torch.empty(
+            (n, dcf_cuda.acc_words(mode)), dtype=torch.int32, device=dev)
+        _build.launch(
+            "dcf_eval_all", fn, s0.data_ptr(),
+            None if roots is None else roots.data_ptr(),
+            None if acc is None else acc.data_ptr(), _rows(cws, first),
+            cws.stride(0), out.data_ptr(),
+            None if acc_out is None else acc_out.data_ptr(),
+            walk if roots is None else first, b, party,
+            dcf_cuda.MODES.index(mode), *vmask, *mask, *mod, arg, device=dev,
+            kernel="dcf_eval_all" + tag)
+        roots, acc = out, acc_out
+    return roots
+
+
+def dcf_eval_all_plain(prg4, group, in_bits: int, party: int, s0, cws,
+                       most: int = SUBTREE_LEVELS) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dcf_eval_all`, on any device, on the
+    kernel's plan: each launch's walks from the root (with the raw
+    accumulators), then its breadth-first levels, then the finalize."""
+    _check_key(s0, cws, in_bits, party, in_bits + 1, 8, most)
+    _build.check_prg(prg4, 4)
+    mode = dcf_cuda.group_mode(group)
+    add = dcf_cuda.accumulator(mode, dcf_cuda.value_mask(group))
+    s = t = v = None
+    for first, walk, b in plan(in_bits, most):
+        if s is None:
+            bits = _walk_bits(walk, s0.device)
+            B = bits.shape[0]
+            acc = torch.zeros((B, dcf_cuda.acc_words(mode)),
+                              dtype=torch.int64, device=s0.device)
+            s, t, v = _dcf.walk(prg4, walk, party, s0.expand(B, 4),
+                                lambda i: cws[i].expand(B, cws.shape[1]),
+                                bits, acc, add)
+        for i in range(first + walk, first + walk + b):
+            s, t, v = _dcf.expand_level(prg4, s, t, v, cws[i], add)
+    return dcf_cuda.finalize(group, party, i32(v), s, t, cws[in_bits, 4:8])
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +399,12 @@ def vdpf_eval_all(prg2, hashes, group, in_bits: int, party: int,
     [2^in_bits, 4] shares in x order, pi [4, 4]).
 
     Counterpart of ``eval_all_pallas.vdpf_eval_all_chunked``: the DPF's
-    expansion kernel for every level (no threshold), the DPF's finalize,
-    pi~ of the whole domain through the XorHash kernel (x as lane 0), the
-    t ? cs : 0 correction in place, and ``fold``: "reference" (the flat
-    chain, one thread), "tree" (one H' launch a level) or "chunked". Both
-    parties must use the same fold. cws are VDPF rows [in_bits, 8].
+    EvalAll kernel with its seeds epilogue (:func:`expand_leaves`), the
+    DPF's finalize, pi~ of the whole domain through the XorHash kernel (x
+    as lane 0), the t ? cs : 0 correction in place, and ``fold``:
+    "reference" (the flat chain, one thread), "tree" (one H' launch a
+    level) or "chunked". Both parties must use the same fold. cws are VDPF
+    rows [in_bits, 8].
     """
     s, t = expand_leaves(prg2, in_bits, party, s0, cws)
     return _vdpf.leaf_outputs(

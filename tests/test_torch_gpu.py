@@ -89,19 +89,36 @@ def test_gen_kernel_matches_plain(n, layout, cuda):
         assert torch.equal(a, b)
 
 
+GROUPS = (groups.Bytes(), groups.Uint(32), groups.Uint(64, (1 << 61) - 1),
+          groups.Uint(128, 1 << 127), groups.Uint(128, (1 << 127) - 1))
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 13])
 def test_eval_all_kernel_matches_plain(n, cuda):
+    """The one-launch EvalAll, every group kind, both parties, on the
+    default plan and with subtrees of at most 2 levels (tops of n - 2),
+    against its plain version and the breadth-first scheme; the seeds
+    epilogue against its plain version."""
     rng = np.random.default_rng(200 + n)
     prg = ChaCha(2, NONCE)
-    g = groups.Uint(64, (1 << 61) - 1)
-    s0s = _words(rng, (1, 2, 4), cuda)
-    cws = plain_dpf.gen(prg, g, n, s0s,
-                        blk.pack_inputs([int(rng.integers(0, 2**n))], n,
-                                        cuda), _words(rng, (1, 4), cuda))[0]
-    for party in (0, 1):
-        got = eval_all_cuda.eval_all(prg, g, n, party, s0s[0, party], cws)
-        want = plain_dpf.eval_all(prg, g, n, party, s0s[0, party], cws)
-        assert torch.equal(got, want)
+    for g in GROUPS:
+        s0s = _words(rng, (1, 2, 4), cuda)
+        cws = plain_dpf.gen(prg, g, n, s0s, blk.pack_inputs(
+            [int(rng.integers(0, 2**n))], n, cuda),
+            _words(rng, (1, 4), cuda))[0]
+        for party in (0, 1):
+            s0 = s0s[0, party]
+            want = plain_dpf.eval_all(prg, g, n, party, s0, cws)
+            for most in (eval_all_cuda.SUBTREE_LEVELS, 2):
+                got = eval_all_cuda.eval_all(prg, g, n, party, s0, cws, most)
+                assert torch.equal(got, want), (g, party, most)
+                assert torch.equal(got, eval_all_cuda.eval_all_plain(
+                    prg, g, n, party, s0, cws, most))
+                seeds = eval_all_cuda.expand_leaves(prg, n, party, s0, cws,
+                                                    most)
+                plain = eval_all_cuda.expand_leaves_plain(prg, n, party, s0,
+                                                          cws, most)
+                assert all(map(torch.equal, seeds, plain))
 
 
 def test_kernels_count_launches(cuda):
@@ -112,7 +129,7 @@ def test_kernels_count_launches(cuda):
     d.eval(0, s0s[0], cws, [4, 5])
     d.eval_all(1, s0s[1], cws)
     assert {k: v for k, v in _build.launches.items() if v} == {
-        "dpf_gen": 1, "dpf_eval": 1, "dpf_eval_all": 4}
+        "dpf_gen": 1, "dpf_eval": 1, "dpf_eval_all": 2}
 
 
 @pytest.mark.parametrize(

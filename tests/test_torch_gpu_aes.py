@@ -197,42 +197,47 @@ def test_vdpf_eval(n, hname, cuda, monkeypatch):
 
 @pytest.mark.parametrize("n", [1, 8, 16])
 def test_eval_all_expansions(n, cuda, monkeypatch):
-    """The three EvalAll expansions, one key a scheme, both parties; the
-    DCF in its wrap and mod128np modes."""
+    """The three EvalAll kernels, one key a scheme, both parties: the DPF's
+    shares and its seeds epilogue, the DCF in its wrap and mod128np modes
+    (each on the default plan and with subtrees of at most 2 levels), the
+    Half-Tree's expansion."""
     rng = np.random.default_rng(600 + n)
     hk = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
     s0s = _words(rng, (1, 2, 4), cuda)
     alpha = _inputs(rng, n, 1, cuda)
     beta = _words(rng, (1, 4), cuda)
-    dpf_key = dpf_cuda.gen_batch(PRG[2], groups.Uint(32), n, s0s, alpha,
-                                 beta)[0]
+    g = groups.Uint(32)
+    dpf_key = dpf_cuda.gen_batch(PRG[2], g, n, s0s, alpha, beta)[0]
     dcf_keys = {m: dcf_cuda.gen_packed(s0s, alpha, beta, n, PRG[4], "lt",
                                        DCF_GROUPS[m])[0]
                 for m in ("wrap", "mod128np")}
     ht_key = ht_cuda.gen_packed(s0s, alpha, n, PRG[1], hk)[0][0]
-    def expand_all(dpf_step, dcf_step, ht_step):
+    E = eval_all_cuda
+
+    def expand_all(dpf_all, dpf_leaves, dcf_all, ht_step):
         out = []
         for p in (0, 1):
             s0 = s0s[0, p]
-            out.append(eval_all_cuda.expand_leaves(PRG[2], n, p, s0, dpf_key,
-                                                   expand=dpf_step))
-            for m, key in dcf_keys.items():
-                out.append(eval_all_cuda.dcf_expand_leaves(
-                    PRG[4], n, p, s0, key, m,
-                    dcf_cuda.value_mask(DCF_GROUPS[m]), expand=dcf_step))
-            out.append(eval_all_cuda.ht_expand_leaves(PRG[1], n, p, hk, s0,
-                                                      ht_key, expand=ht_step))
+            for most in (E.SUBTREE_LEVELS, 2):
+                out.append(dpf_all(PRG[2], g, n, p, s0, dpf_key, most))
+                out.append(dpf_leaves(PRG[2], n, p, s0, dpf_key, most))
+                for m, key in dcf_keys.items():
+                    out.append(dcf_all(PRG[4], DCF_GROUPS[m], n, p, s0, key,
+                                       most))
+            out.append(E.ht_expand_leaves(PRG[1], n, p, hk, s0, ht_key,
+                                          expand=ht_step))
         return out
 
-    want = expand_all(eval_all_cuda.expand_packed_plain,
-                      eval_all_cuda.dcf_expand_packed_plain,
-                      eval_all_cuda.ht_expand_packed_plain)
+    want = expand_all(E.eval_all_plain, E.expand_leaves_plain,
+                      E.dcf_eval_all_plain, E.ht_expand_packed_plain)
     launches = kernels_only(monkeypatch)
-    got = expand_all(eval_all_cuda.expand_packed,
-                     eval_all_cuda.dcf_expand_packed,
-                     eval_all_cuda.ht_expand_packed)
+    got = expand_all(E.eval_all, E.expand_leaves, E.dcf_eval_all,
+                     E.ht_expand_packed)
     for a, b in zip(got, want):
-        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, tuple):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+        else:
+            assert torch.equal(a, b)
     _aes_only(launches, "dpf_eval_all", "dcf_eval_all", "ht_eval_all")
 
 

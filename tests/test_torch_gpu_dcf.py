@@ -112,14 +112,13 @@ def test_eval_all_kernel_matches_plain(gname, n, cuda):
     cws = dcf_cuda.gen_batch(PRG4, g, n, "lt", s0s,
                              _inputs(rng, n, 1, cuda),
                              _words(rng, (1, 4), cuda))[0]
-    mode, vmask = dcf_cuda.group_mode(g), dcf_cuda.value_mask(g)
     for party in (0, 1):
-        got = eval_all_cuda.dcf_expand_leaves(prg, n, party, s0s[0, party],
-                                              cws, mode, vmask)
-        want = eval_all_cuda.dcf_expand_leaves(
-            prg, n, party, s0s[0, party], cws, mode, vmask,
-            expand=eval_all_cuda.dcf_expand_packed_plain)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        for most in (eval_all_cuda.SUBTREE_LEVELS, 2):
+            got = eval_all_cuda.dcf_eval_all(prg, g, n, party,
+                                             s0s[0, party], cws, most)
+            want = eval_all_cuda.dcf_eval_all_plain(prg, g, n, party,
+                                                    s0s[0, party], cws, most)
+            assert torch.equal(got, want), (party, most)
 
 
 def test_kernels_count_launches(cuda):
@@ -130,7 +129,7 @@ def test_kernels_count_launches(cuda):
     d.eval(0, s0s[0], cws, [4, 5])
     d.eval_all(1, s0s[1], cws)
     assert {k: v for k, v in _build.launches.items() if v} == {
-        "dcf_gen": 1, "dcf_eval": 1, "dcf_eval_all": 4}
+        "dcf_gen": 1, "dcf_eval": 1, "dcf_eval_all": 2}
 
 
 @pytest.mark.parametrize(

@@ -172,7 +172,7 @@ def test_kernels_count_launches(cuda):
     d.eval_all(1, s0s[0, 1], cws[0], cs[0], ocw[0], fold="tree")
     assert {k: v for k, v in _build.launches.items() if v} == {
         "dpf_gen": 1, "sha256_xor_hash": 3, "vdpf_eval": 1,
-        "sha256_chain": 1, "dpf_eval_all": 4, "sha256_hash64": 11}
+        "sha256_chain": 1, "dpf_eval_all": 2, "sha256_hash64": 11}
 
 
 def test_gen_batch_on_cuda_matches_cpu(cuda):
