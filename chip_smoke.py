@@ -17,9 +17,10 @@ Phases, each printing one line (any failure exits non-zero):
      DPF and DCF EvalAll kernels for every group kind on both sides of
      their plan's boundary, ``CHECK_PLANS``, and the DPF's seeds epilogue;
      the Half-Tree and VDPF EvalAll at several domains); the DCF kernels
-     in each of their five accumulator modes; the hash kernels also on the
-     reference's primitive vectors, and the flat proof chains on 4096
-     points;
+     in each of their five accumulator modes, and the DPF Gen's output CW
+     for each of those five group kinds (wire and packed keys, 1, 16 and
+     128 bits); the hash kernels also on the reference's primitive
+     vectors, and the flat proof chains on 4096 points;
   4. golden: the reference's DPF, DCF, Half-Tree and VDPF vectors, ChaCha
      and AES, through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
      Vdpf("cuda"), the VDPF's pi~, proofs and reference-fold EvalAll
@@ -27,9 +28,10 @@ Phases, each printing one line (any failure exits non-zero):
   5. main paths at full size, each with the launch counts zeroed just
      before it and read just after; first with ChaCha:
      - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
-       ChaCha mul=2), Eval of both parties, reconstruction of every key, a
-       4096-key sample against the plain version; then EvalAll of one key
-       at 20 and 24 bits, reconstructed over the domain;
+       ChaCha mul=2), wire and packed (the same keys), Eval of both
+       parties, reconstruction of every key, a 4096-key sample against the
+       plain version; then EvalAll of one key at 20 and 24 bits,
+       reconstructed over the domain;
      - DCF: the same for Dcf(16, Uint(32), ChaCha mul=4, "lt"): 2^20 keys,
        x below, at and above alpha, every key reconstructed to
        beta * (x < alpha); EvalAll at 20 and 24 bits;
@@ -117,15 +119,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 LANES_PER_SM_CLOCK = 128
 CHACHA_OPS = 960  # 10 double rounds x 8 quarter-rounds x 12 ALU ops
 SASS_ALU = ("LOP3", "IADD3", "VIADD", "SHF", "PRMT", "IMAD", "LEA")
-# One AES-128-MMO block (csrc/aes.cuh): 160 Te0 and 16 S-box lookups, each
+# One AES-128-MMO block (csrc/aes.cuh), the work the bounds count: 160
+# table lookups (144 in the 9 T-table rounds, 16 in the S-box round), each
 # one shared-memory load (LDS, 32 a clock per SM with no bank conflict),
-# and the ALU work around them: a byte extraction a lookup (176 PRMT), a
-# rotation for 3 of each round's 4 (108 SHF), two 3-input XORs a word a
-# round to fold 4 lookups and the round key (72 LOP3), the last round's
-# 12 shifts and 8 LOP3s, and the byte swaps and seed XORs in and out (16).
-AES_LDS = 176
-AES_ALU = 176 + 108 + 72 + 20 + 16
+# and the ALU work of the T-table form: a byte extraction a lookup (160), a
+# rotation for 3 of each round's 4 (108), two 3-input XORs a word a round
+# to fold 4 lookups and the round key (72), the last round's 12 shifts and
+# 8 ORs, and the byte swaps and seed XORs in and out (16). The kernels'
+# layouts (AesTables) do the same work with other instructions: with
+# copies of Te0 and Te2 (<32, 2>) a lookup's address is one PRMT (the byte
+# extraction and the lane's copy at once), a round word takes 1 rotation
+# and 3 LOP3s, and the byte swaps fold into the round keys and the last
+# round's PRMTs, ~324 ALU instructions; the SASS counts of phase 2 show
+# what each kernel issues.
+AES_LDS = 160
+AES_ALU = 160 + 108 + 72 + 20 + 16
 LDS_PER_SM_CLOCK = 32
+# Clocks from one 32-bit ALU instruction (IADD3, LOP3, SHF, PRMT) to the
+# next that reads its result: the issue latency of Volta to Hopper integer
+# instructions in published microbenchmarks, an assumption of the chains'
+# latency bound (hash_depth), not a measurement.
+ALU_LATENCY_CLOCKS = 4
 # The kernels line's rows that stand for a TPU kernel (PERF.md section 6);
 # the others replace XLA glue of the JAX package.
 TPU_ROWS = {name: f"B-{i}" for i, name in enumerate((
@@ -214,6 +228,44 @@ def sha256_alu(c: AluCount, words) -> None:
         c.op(1, x)
 
 
+def hash_depth(name: str) -> int:
+    """Dependent ALU instructions of one step of the flat proof chain
+    (``csrc/blake3.cu``, ``csrc/sha256.cu``: m = pi ^ pt, H'(m), pi ^= h):
+    the longest path through it, counting each instruction on it once (a
+    3-input add or logic op, a funnel shift, a byte swap), with the
+    rotations and shifts that feed one XOR in parallel. A step waits on the
+    last one's pi words (lanes 0-7 of m); cs, the point and the constants
+    are off the path."""
+    if name == "blake3":
+        m, v = [1] * 8 + [0] * 8, [0] * 16
+        for _ in range(7):
+            for i, (a, b, c, d) in enumerate(BLAKE3_G):
+                for x in m[2 * i:2 * i + 2]:
+                    v[a] = max(v[a], v[b], x) + 1  # a + b + m
+                    v[d] = max(v[d], v[a]) + 2     # XOR, rotate
+                    v[c] = max(v[c], v[d]) + 1
+                    v[b] = max(v[b], v[c]) + 2
+            m = [m[p] for p in BLAKE3_PERM]
+        return max(max(v[i], v[i + 8]) for i in range(8)) + 1
+
+    def block(st, w):
+        a, b, c, d, e, f, g, h = st
+        for t in range(64):
+            j = t % 16
+            if t >= 16:  # two sigmas (rotations in parallel, one LOP3),
+                w[j] = max(w[j], w[(t + 1) % 16] + 2, w[(t + 9) % 16],
+                           w[(t + 14) % 16] + 2) + 2  # then two adds
+            t1 = max(max(h, w[j]) + 1, e + 2, max(e, f, g) + 1) + 1
+            a, b, c, d, e, f, g, h = (max(t1, a + 2, max(a, b, c) + 1) + 1,
+                                      a, b, c, max(d, t1) + 1, e, f, g)
+        return [max(x, y) + 1 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+
+    # Block 1: the key, m[0..7] (pi ^ pt, byte-swapped) and m[8..11];
+    # block 2: m[12..15] and the padding, off the path.
+    st = block(block([0] * 8, [0] * 4 + [2] * 8 + [0] * 4), [0] * 16)
+    return max(st) + 2  # byte swap, pi ^= h
+
+
 def hash_alu(name: str, use: str) -> int:
     """ALU instructions a row of ``use``: "xor_hash" H(x, b) with x below
     2^32 (lanes 1-3 zero, as on every main path here) or "hash64" H'."""
@@ -275,20 +327,24 @@ def same(a, b) -> bool:
 
 def kernel_name(mangled: str) -> str:
     """A mangled entry function -> kernel<template args>, the PRG type
-    argument as "chacha" or "aes". Each name in it follows its length in
-    digits, which may run on from the anonymous namespace's hex digest, so
-    every tail of a digit run is tried."""
+    argument as "chacha" or "aes<copies>x<tables>" (its tables' layout).
+    Each name in it follows its length in digits, which may run on from the
+    anonymous namespace's hex digest, so every tail of a digit run is
+    tried."""
     name = mangled
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             cand = mangled[run.end():run.end() + int(mangled[i:run.end()])]
             if cand.endswith("_kernel"):
                 name = cand
-    prg = re.search(r"(9ChaChaPrg|6AesPrgILi\dEE)", mangled)
-    args = re.findall(r"L[ib](\d+)E", re.sub(r"AesPrgILi\dEE", "",
-                                              mangled))
-    if prg:
-        args.append("chacha" if prg.group(1).startswith("9") else "aes")
+    aes = re.compile(r"6AesPrgILi\dEN(?:S\d*_|3fss)9AesTablesILi(\d+)ELi(\d)"
+                     r"EEE")
+    args = re.findall(r"L[ib](\d+)E", aes.sub("", mangled))
+    if "9ChaChaPrg" in mangled:
+        args.append("chacha")
+    layout = aes.search(mangled)
+    if layout:  # the AES tables' layout, aes.cuh: AesTables<copies, tables>
+        args.append(f"aes{layout.group(1)}x{layout.group(2)}")
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -392,7 +448,7 @@ def main() -> int:
     sass = {name: sass_usage(cuobjdump, _build.library(name))
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
                          "dcf_eval", "ht_eval", "dpf_eval_all",
-                         "dcf_eval_all")}
+                         "dcf_eval_all", "dpf_gen", "dcf_gen")}
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
                              for h in ("blake3", "sha256")
@@ -507,6 +563,18 @@ def main() -> int:
                                                  layout=layout)
                 checks.append((f"{tag} dpf_gen n={n} {layout}",
                                same(got, want)))
+        # The output CW in the Gen kernel, for every group kind.
+        for n in (1, 16, 128):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            alphas = kernel_inputs(domain(words((B, 4)), n), n)
+            for g in dcf_groups.values():
+                for layout in ("wire", "packed"):
+                    args = (s0s, alphas, n, P[2], layout)
+                    got = dpf_cuda.gen_packed(*args, betas=betas, group=g)
+                    want = dpf_cuda.gen_packed_plain(*args, betas=betas,
+                                                     group=g)
+                    checks.append((f"{tag} dpf_gen output cw {g.name} "
+                                   f"n={n} {layout}", same(got, want)))
         eval_all_checks(P, tag)
 
         for mode, g in dcf_groups.items():
@@ -531,7 +599,7 @@ def main() -> int:
                                                       P[4], mode, vmask)
                     checks.append((f"{tag} dcf_eval {mode} n={n} {label}",
                                    same(got, want)))
-            for n in (16, 48):
+            for n in (1, 16, 48):
                 s0s, betas = words((B, 2, 4)), words((B, 4))
                 alphas = kernel_inputs(domain(words((B, 4)), n), n)
                 for pred in ("lt", "gt"):
@@ -826,6 +894,7 @@ def main() -> int:
         _build.reset_launches()
         t0 = time.perf_counter()
         cws = d.gen_batch(s0s, alphas, betas)
+        packed = d.gen_batch(s0s, alphas, betas, layout="packed")
         y0 = d.eval(0, s0s[:, 0].contiguous(), cws, xs)
         y1 = d.eval(1, s0s[:, 1].contiguous(), cws, xs)
         rec = g.add(g.from_block(y0), g.from_block(y1))
@@ -842,6 +911,7 @@ def main() -> int:
         launches = counts_of(DPF_SOURCES, sfx)
 
         rec_ok, ea_ok = point_ok(rec, betas, ea_rec, ea_beta)
+        rec_ok &= torch.equal(packed.to_wire(MAIN_BITS), cws)
         sample_ok = same(cws[:SAMPLE], plain_dpf.gen(
             prg2, g, MAIN_BITS, s0s[:SAMPLE],
             blk.pack_inputs(alphas[:SAMPLE], MAIN_BITS), betas[:SAMPLE]))
@@ -1091,9 +1161,9 @@ def main() -> int:
                                      AES_EVAL_ALL_BITS)
     if not ok:
         return 1
-    for v in aes_main.values():
+    for v in aes_main.values():  # each kernel's count from its own path
         launches.update({k: c for k, c in v["launches"].items()
-                         if k.endswith("_aes")})
+                         if k.endswith("_aes") and k not in launches})
 
     # 6. timing at the main-path shapes -----------------------------------
     def expanders(scheme, S, P):
@@ -1126,7 +1196,8 @@ def main() -> int:
         V = vmain["blake3"] if tag == "" else aes_main["vdpf"]
         ev = (D["s0s"][:, 0].contiguous(), D["cws"], D["xs"], MAIN_BITS, 0,
               P[2])
-        gv = (D["s0s"], D["alphas"], MAIN_BITS, P[2])
+        gv = (D["s0s"], D["alphas"], MAIN_BITS, P[2], "wire")
+        gkw = dict(betas=D["betas"], group=D["g"])
         cev = (C["s0s"][:, 0].contiguous(), C["cws"], C["xs"], MAIN_BITS, 0,
                P[4], "wrap")
         cgv = (C["s0s"], C["alphas"], C["betas"], MAIN_BITS, P[4], "lt",
@@ -1178,10 +1249,12 @@ def main() -> int:
              lambda: dpf_cuda.eval_packed_plain(*ev),
              nd * MAIN_BITS * (2 if aes else 1), 0,
              nd * (16 + MAIN_BITS * 20 + 4 + 16 + 4)),
-            ("dpf_gen", lambda: dpf_cuda.gen_packed(*gv),
-             lambda: dpf_cuda.gen_packed_plain(*gv),
+            # seeds 32 B, alpha 4 B, beta 16 B in; n + 1 rows of 32 B (the
+            # output CW last), final seeds and t bits out.
+            ("dpf_gen", lambda: dpf_cuda.gen_packed(*gv, **gkw),
+             lambda: dpf_cuda.gen_packed_plain(*gv, **gkw),
              nd * MAIN_BITS * (4 if aes else 2), 0,
-             nd * (32 + 4 + (MAIN_BITS + 1) * 32 + 2 * 16 + 2 * 4)),
+             nd * (32 + 4 + 16 + (MAIN_BITS + 1) * 32 + 2 * 16 + 2 * 4)),
             # the root 16 B, 20 B of cw a level and the output CW 16 B in;
             # a 16 B share a leaf out. 2^n - 1 expansions (the CTAs' walks
             # to their subtree roots are not work the function needs).
@@ -1316,6 +1389,10 @@ def main() -> int:
             ev = lambda: d.eval(0, s0, M["cws"], M["xs"])  # noqa: E731
         gen_ms = cuda_ms(lambda: d.gen_batch(M["s0s"], M["alphas"],
                                              M["betas"]), 10)
+        # The DPF's packed keys: one launch too (PackedDpfKeys).
+        gen_packed_ms = cuda_ms(lambda: d.gen_batch(
+            M["s0s"], M["alphas"], M["betas"], layout="packed"),
+                                10) if scheme == "dpf" else None
         eval_ms = cuda_ms(ev, 10)
         eas = M["ea"]
         ea_call = {n: (lambda n=n: eas[n].eval_all(
@@ -1328,6 +1405,7 @@ def main() -> int:
         log("timing", scheme=scheme, prg=type(P[1]).__name__, card=kind,
             power_limit=smi.split(",")[-1].strip(),
             gen_keys_per_s=nk / (gen_ms / 1e3), gen_ms=gen_ms,
+            gen_packed_ms=gen_packed_ms,
             gen_kernel_ms=by_name[f"{short}_gen{tag}"]["ms"],
             gen_bound_ms=by_name[f"{short}_gen{tag}"]["bound_ms"],
             eval_per_s=nk / (eval_ms / 1e3), eval_ms=eval_ms,
@@ -1377,14 +1455,18 @@ def main() -> int:
         return (time.perf_counter() - t0) * 1e3
 
     # The chains' plain versions (one call each: Python ints on the host)
-    # and bounds: CHAIN_ROWS H' of 64 B in, cs 64 B in, the proof 64 B out.
-    # One thread's dependency chain sets their pace, not these bounds.
+    # and bounds: CHAIN_ROWS H' of 64 B in, cs 64 B in, the proof 64 B out
+    # (a throughput bound); and one thread's dependency chain, which sets
+    # their pace: CHAIN_ROWS x hash_depth x ALU_LATENCY_CLOCKS at the max
+    # SM clock (the latency bound).
     chain_plain_ms = {name: once_ms(lambda h=v["d"].hashes:
                                     vdpf_cuda.prove_plain(h, pts, cs0))
                       for name, v in vmain.items()}
     chain_bound = {name: bound(CHAIN_ROWS * hash_alu(name, "hash64"),
                                CHAIN_ROWS * 64 + 64 + 64)
                    for name in vmain}
+    chain_latency = {name: CHAIN_ROWS * hash_depth(name) * ALU_LATENCY_CLOCKS
+                     / (max_mhz * 1e3) for name in vmain}
     t0 = time.perf_counter()
     draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
     draw_s = time.perf_counter() - t0
@@ -1432,7 +1514,9 @@ def main() -> int:
         chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms,
                       "plain_ms": chain_plain_ms[n],
                       "bound_ms": chain_bound[n][0],
-                      "bound_by": chain_bound[n][1]}
+                      "bound_by": chain_bound[n][1],
+                      "depth": hash_depth(n),
+                      "latency_bound_ms": chain_latency[n]}
                   for n, ms in chain_ms.items()},
         vdpf_eval_all_items_per_s={
             n: {k: (1 << k) / (ms / 1e3) for k, ms in t[2].items()}

@@ -2,25 +2,48 @@
 // shared by every kernel that runs the AES PRG (through prg.cuh).
 //
 // Device counterpart of fss_tpu_torch/prg/aes.py, and of the T-table form
-// of fss_tpu/prg/aes.py (the reference's aes128_mmo_soft.cuh): the seed's
-// lanes are byte-swapped into the big-endian state words, then 9 rounds of
-// 16 Te0 lookups with the rotations, the S-box round, the swap back and the
-// XOR with the seed.
+// of fss_tpu/prg/aes.py (the reference's aes128_mmo_soft.cuh): 9 rounds of
+// 16 Te0 lookups with the rotations, then the S-box round, on big-endian
+// state words. The seed's lanes are little-endian; rather than byte-swap
+// them in and out, the first and last round keys come byte-swapped
+// (AesPrg::from, prg.cuh), the first round indexes the swapped state's
+// bytes in the other order and the last round assembles its bytes swapped.
+// The round keys are kernel parameters and the rounds fully unrolled, so
+// every state word and round-key index is a compile-time constant, the
+// state stays in registers and each round key is a constant-bank operand.
 //
-// The two tables (Te0, and the S-box stored as 32-bit words, 2 KB in all)
-// live in shared memory. Every thread of a block takes part in filling them
-// (aes_load_tables) before any thread leaves, so kernels call it before
-// their `if (k >= batch) return;`. The round keys are kernel parameters
-// (AesPrg in prg.cuh): the rounds are fully unrolled, so every state word
-// and round-key index is a compile-time constant, the state stays in
-// registers and each round key is a constant-bank operand.
+// The tables live in shared memory. Every thread of a block takes part in
+// filling them (fill) before any thread leaves, so kernels call prg.init()
+// before their `if (k >= batch) return;`. The final round takes S[i] from
+// byte 1 of Te0[i], so there is no S-box table. A warp's 32 random indices
+// into one 256-word table would meet ~3-4 ways of bank conflict a lookup,
+// so each lane reads its own copy. The layout is a template parameter of
+// AesPrg, AesTables<COPIES, TABLES>, each kernel source's compile-time
+// choice:
 //
-// Cost of one block: 160 lookups into Te0 and 16 into the S-box (LDS), and
-// per lookup a byte extraction and, for 3 of 4, a rotation; the lookups'
-// random indices into one 256-word table meet ~3-4 ways of bank conflict
-// per warp (one table per rotation, or a table per bank, is later work).
+//   <32, 1>   32 copies of Te0 (32 KB): entry i of copy c at word
+//             i * 32 + c, lane l reads copy l % 32. No conflicts.
+//   <32, 2>   32 copies of Te0 and 32 of Te2 = rotr16(Te0) (64 KB): entry
+//             i of table j for lane l at byte i * 256 + (32 j + l) * 4. A
+//             lookup's address is one PRMT (the state byte into byte 1,
+//             the lane's offset into byte 0), and a round word takes one
+//             rotation, not three: Te0[a] ^ Te2[c] ^ k ^ rotr8(Te0[b] ^
+//             Te2[d]). No conflicts.
+//
+// Copies live at the front of the kernel's dynamic shared memory (kBytes;
+// prg.cuh's kPrgSmem, which every launch adds), filled from the single
+// static table. Cost of one block (the model of chip_smoke.py's bounds,
+// AES_LDS and AES_ALU, counts the work): 160 lookups, 16 in each of the 9
+// T-table rounds and 16 in the last. Per lookup an address of two ALU ops
+// (a shift and a LOP3 that masks the byte and ORs the lane's offset), or
+// one PRMT with <32, 2>; per round word 3 rotations (1 with <32, 2>) and
+// the XORs of 4 entries and the key (two LOP3, three with <32, 2>); the
+// last round's bytes join in 3 PRMTs and one LOP3 folds in the key and
+// the seed.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -50,74 +73,130 @@ __device__ const uint8_t kAesSbox[256] = {
     0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f,
     0xb0, 0x54, 0xbb, 0x16};
 
-// The block's tables: allocated only in kernels that reference them.
-__shared__ uint32_t aes_te0[256];
-__shared__ uint32_t aes_sbox[256];
-
-// Every thread of the block calls this once, before any thread returns.
-__device__ __forceinline__ void aes_load_tables() {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    const uint32_t s = kAesSbox[i];
-    const uint32_t x2 = ((s << 1) ^ ((s >> 7) * 0x1Bu)) & 0xFFu;
-    aes_te0[i] = (x2 << 24) | (s << 16) | (s << 8) | (s ^ x2);
-    aes_sbox[i] = s;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ uint32_t aes_bswap(uint32_t x) {
-  return __byte_perm(x, 0u, 0x0123);
+// Te0[i] = (2 S[i], S[i], S[i], 3 S[i]) of AES's T-table form.
+__device__ __forceinline__ uint32_t aes_te0_entry(int i) {
+  const uint32_t s = kAesSbox[i];
+  const uint32_t x2 = ((s << 1) ^ ((s >> 7) * 0x1Bu)) & 0xFFu;
+  return (x2 << 24) | (s << 16) | (s << 8) | (s ^ x2);
 }
 
 __device__ __forceinline__ uint32_t aes_rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
-// Byte b (0 = least significant) of x, zero-extended: one PRMT.
-template <int b>
-__device__ __forceinline__ uint32_t aes_byte(uint32_t x) {
-  return __byte_perm(x, 0u, 0x4440 | b);
-}
+// The single table, which the copies are filled from.
+__shared__ uint32_t aes_te0[256];
+// The copies: the front of the kernel's dynamic shared memory.
+extern __shared__ uint4 aes_smem[];
 
-// One T-table round: output word i from state words i, i+1, i+2, i+3.
+template <int COPIES, int TABLES>
+struct AesTables {
+  static_assert(COPIES == 32 && (TABLES == 1 || TABLES == 2),
+                "AesTables: <32, 1> or <32, 2>");
+  static constexpr int kTables = TABLES;
+  // log2 of the bytes between entries i and i + 1 of a table.
+  static constexpr int kShift = TABLES == 1 ? 7 : 8;
+  // Dynamic shared memory the tables take.
+  static constexpr int kBytes = 256 << kShift;
+
+  // Every thread of the block, then a barrier: the single table, then the
+  // copies from it, neighbouring threads storing neighbouring 16 bytes.
+  __device__ static void fill() {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x)
+      aes_te0[i] = aes_te0_entry(i);
+    __syncthreads();
+    constexpr int kVecs = COPIES * TABLES / 4;  // 16-byte stores an entry
+#pragma unroll 4
+    for (int j = threadIdx.x; j < 256 * kVecs; j += blockDim.x) {
+      const uint32_t e = aes_te0[j / kVecs];
+      const uint32_t v = (j % kVecs) * 4 < COPIES ? e : aes_rotr(e, 16);
+      aes_smem[j] = make_uint4(v, v, v, v);
+    }
+    __syncthreads();
+  }
+
+  // This thread's byte offset into table j (0: Te0, 1: Te2).
+  __device__ static uint32_t offset(int j) {
+    return ((threadIdx.x % COPIES) + j * COPIES) * 4u;
+  }
+
+  // The entry of byte K of x, in the table at this thread's offset `off`.
+  template <int K>
+  __device__ static uint32_t load(uint32_t x, uint32_t off) {
+    uint32_t a;
+    if constexpr (TABLES == 2) {
+      a = __byte_perm(x, off, 0x5504 | (K << 4));
+    } else if constexpr (K > 0) {
+      a = ((x >> (8 * K - kShift)) & (0xFFu << kShift)) | off;
+    } else {
+      a = ((x << kShift) & (0xFFu << kShift)) | off;
+    }
+    return *reinterpret_cast<const uint32_t*>(
+        reinterpret_cast<const char*>(aes_smem) + a);
+  }
+};
+
+// One T-table round's output word from state words a, b, c, d and round key
+// k: bytes A, B, C, D of them index it (3, 2, 1, 0 for big-endian words;
+// 0, 1, 2, 3 for the byte-swapped words of the first round).
+template <class T, int A, int B, int C, int D>
 __device__ __forceinline__ uint32_t aes_t_word(uint32_t a, uint32_t b,
                                                uint32_t c, uint32_t d,
-                                               uint32_t k) {
-  return aes_te0[aes_byte<3>(a)] ^ aes_rotr(aes_te0[aes_byte<2>(b)], 8) ^
-         aes_rotr(aes_te0[aes_byte<1>(c)], 16) ^
-         aes_rotr(aes_te0[aes_byte<0>(d)], 24) ^ k;
+                                               uint32_t k, uint32_t off0,
+                                               uint32_t off2) {
+  if constexpr (T::kTables == 2) {
+    return T::template load<A>(a, off0) ^ T::template load<C>(c, off2) ^ k ^
+           aes_rotr(T::template load<B>(b, off0) ^
+                        T::template load<D>(d, off2),
+                    8);
+  } else {
+    return T::template load<A>(a, off0) ^
+           aes_rotr(T::template load<B>(b, off0), 8) ^
+           aes_rotr(T::template load<C>(c, off0), 16) ^
+           aes_rotr(T::template load<D>(d, off0), 24) ^ k;
+  }
 }
 
-// The final round's word i: SubBytes, ShiftRows, AddRoundKey.
+// The final round's word (SubBytes, ShiftRows), its bytes assembled in the
+// seed's order, XORed with the byte-swapped round key k and the seed word x.
+template <class T>
 __device__ __forceinline__ uint32_t aes_s_word(uint32_t a, uint32_t b,
                                                uint32_t c, uint32_t d,
-                                               uint32_t k) {
-  return ((aes_sbox[aes_byte<3>(a)] << 24) |
-          (aes_sbox[aes_byte<2>(b)] << 16) | (aes_sbox[aes_byte<1>(c)] << 8) |
-          aes_sbox[aes_byte<0>(d)]) ^
-         k;
+                                               uint32_t k, uint32_t x,
+                                               uint32_t off0) {
+  const uint32_t lo = __byte_perm(T::template load<3>(a, off0),
+                                  T::template load<2>(b, off0), 0x0051);
+  const uint32_t hi = __byte_perm(T::template load<1>(c, off0),
+                                  T::template load<0>(d, off0), 0x5100);
+  return __byte_perm(lo, hi, 0x7610) ^ k ^ x;
 }
 
 // out = AES_rk(seed) ^ seed over the seed's 4 lanes; rk: the 44 big-endian
-// round-key words. `out` may alias `seed`.
+// round-key words, words 0-3 and 40-43 byte-swapped. `out` may alias `seed`.
+template <class T>
 __device__ __forceinline__ void aes_mmo(const uint32_t (&rk)[44],
                                         const uint32_t seed[4],
                                         uint32_t out[4]) {
+  const uint32_t off0 = T::offset(0), off2 = T::offset(1);
   const uint32_t x0 = seed[0], x1 = seed[1], x2 = seed[2], x3 = seed[3];
-  uint32_t s0 = aes_bswap(x0) ^ rk[0], s1 = aes_bswap(x1) ^ rk[1];
-  uint32_t s2 = aes_bswap(x2) ^ rk[2], s3 = aes_bswap(x3) ^ rk[3];
+  uint32_t s0 = x0 ^ rk[0], s1 = x1 ^ rk[1], s2 = x2 ^ rk[2], s3 = x3 ^ rk[3];
+  uint32_t t0 = aes_t_word<T, 0, 1, 2, 3>(s0, s1, s2, s3, rk[4], off0, off2);
+  uint32_t t1 = aes_t_word<T, 0, 1, 2, 3>(s1, s2, s3, s0, rk[5], off0, off2);
+  uint32_t t2 = aes_t_word<T, 0, 1, 2, 3>(s2, s3, s0, s1, rk[6], off0, off2);
+  uint32_t t3 = aes_t_word<T, 0, 1, 2, 3>(s3, s0, s1, s2, rk[7], off0, off2);
+  s0 = t0; s1 = t1; s2 = t2; s3 = t3;
 #pragma unroll
-  for (int r = 1; r < 10; ++r) {
-    const uint32_t t0 = aes_t_word(s0, s1, s2, s3, rk[4 * r]);
-    const uint32_t t1 = aes_t_word(s1, s2, s3, s0, rk[4 * r + 1]);
-    const uint32_t t2 = aes_t_word(s2, s3, s0, s1, rk[4 * r + 2]);
-    const uint32_t t3 = aes_t_word(s3, s0, s1, s2, rk[4 * r + 3]);
+  for (int r = 2; r < 10; ++r) {
+    t0 = aes_t_word<T, 3, 2, 1, 0>(s0, s1, s2, s3, rk[4 * r], off0, off2);
+    t1 = aes_t_word<T, 3, 2, 1, 0>(s1, s2, s3, s0, rk[4 * r + 1], off0, off2);
+    t2 = aes_t_word<T, 3, 2, 1, 0>(s2, s3, s0, s1, rk[4 * r + 2], off0, off2);
+    t3 = aes_t_word<T, 3, 2, 1, 0>(s3, s0, s1, s2, rk[4 * r + 3], off0, off2);
     s0 = t0; s1 = t1; s2 = t2; s3 = t3;
   }
-  out[0] = aes_bswap(aes_s_word(s0, s1, s2, s3, rk[40])) ^ x0;
-  out[1] = aes_bswap(aes_s_word(s1, s2, s3, s0, rk[41])) ^ x1;
-  out[2] = aes_bswap(aes_s_word(s2, s3, s0, s1, rk[42])) ^ x2;
-  out[3] = aes_bswap(aes_s_word(s3, s0, s1, s2, rk[43])) ^ x3;
+  out[0] = aes_s_word<T>(s0, s1, s2, s3, rk[40], x0, off0);
+  out[1] = aes_s_word<T>(s1, s2, s3, s0, rk[41], x1, off0);
+  out[2] = aes_s_word<T>(s2, s3, s0, s1, rk[42], x2, off0);
+  out[3] = aes_s_word<T>(s3, s0, s1, s2, rk[43], x3, off0);
 }
 
 }  // namespace fss

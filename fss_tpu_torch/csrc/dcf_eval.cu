@@ -19,13 +19,13 @@
 // one 960-op ChaCha block plus ~30 ops of correction, selection and
 // accumulation, against 32 bytes of cw read; at 2^20 keys x 16 levels that is
 // ~1.6e10 ops (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) but ~0.54 GB (~0.16
-// ms at 3.35 TB/s). With AES: four blocks of 176 shared-memory lookups a level,
-// ~1.2e10 LDS at 2^20 keys x 16 levels (~1.4 ms at 32 a clock x 132 SMs x 1.98
-// GHz before bank conflicts). As in dpf_eval.cu, the ChaCha state, the seed, t
-// and the accumulator stay in registers for the whole walk so nothing but the
-// key bytes touches memory. The cw is addressed through three strides (level,
-// word, key), so the kernel streams wire rows [B, n+1, 8] in place or one
-// broadcast key (key stride 0).
+// ms at 3.35 TB/s). With AES: four blocks of 160 shared-memory lookups a level,
+// ~1.1e10 LDS at 2^20 keys x 16 levels (~1.3 ms at 32 a clock x 132 SMs x 1.98
+// GHz; AesTables below keeps them free of bank conflicts). As in dpf_eval.cu,
+// the ChaCha state, the seed, t and the accumulator stay in registers for the
+// whole walk so nothing but the key bytes touches memory. The cw is addressed
+// through three strides (level, word, key), so the kernel streams wire rows [B,
+// n+1, 8] in place or one broadcast key (key stride 0).
 
 #include <cuda_runtime.h>
 
@@ -33,6 +33,9 @@
 #include "dcf_acc.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
 
 template <bool kWide, int M, class Prg>
 __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
@@ -101,13 +104,14 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
 }
 
 template <bool kWide, int M, class Prg>
-void launch(const void* seeds, int64_t seed_ks, const void* cws,
+int launch(const void* seeds, int64_t seed_ks, const void* cws,
             int64_t cw_ls, int64_t cw_ws, int64_t cw_ks, const void* xs,
             void* vo, void* so, void* t_out, int64_t batch, int in_bits,
             int party, uint4 vmask, const Prg& prg, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  dcf_eval_kernel<kWide, M, Prg><<<(unsigned)blocks, threads, 0, stream>>>(
+  return fss::launch_kernel<Prg>(
+      dcf_eval_kernel<kWide, M, Prg>, (unsigned)blocks, threads, stream,
       (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
       cw_ks, (const uint32_t*)xs, (uint32_t*)vo, (int4*)so, (int32_t*)t_out,
       batch, in_bits, party, vmask, prg);
@@ -132,17 +136,17 @@ extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
   if (batch <= 0) return 0;
   const uint4 vmask = make_uint4(vmask0, vmask1, vmask2, vmask3);
   cudaStream_t st = (cudaStream_t)stream;
-  return fss::with_prg<4>(prg, [&](auto p) {
+  return fss::with_prg<4, AesTables>(prg, [&](auto p) {
 #define FSS_DCF_EVAL(W, M)                                                  \
-  launch<W, M>(seeds, seed_ks, cws, cw_ls, cw_ws, cw_ks, xs, vo, so, t_out, \
-               batch, in_bits, party, vmask, p, st)
+  return launch<W, M>(seeds, seed_ks, cws, cw_ls, cw_ws, cw_ks, xs, vo, so, \
+                      t_out, batch, in_bits, party, vmask, p, st)
 #define FSS_DCF_EVAL_MODES(W)                           \
   switch (mode) {                                       \
-    case fss::kXor: FSS_DCF_EVAL(W, fss::kXor); break;  \
-    case fss::kWrap: FSS_DCF_EVAL(W, fss::kWrap); break; \
-    case fss::kMod64: FSS_DCF_EVAL(W, fss::kMod64); break; \
-    case fss::kMod128: FSS_DCF_EVAL(W, fss::kMod128); break; \
-    case fss::kMod128np: FSS_DCF_EVAL(W, fss::kMod128np); break; \
+    case fss::kXor: FSS_DCF_EVAL(W, fss::kXor);         \
+    case fss::kWrap: FSS_DCF_EVAL(W, fss::kWrap);       \
+    case fss::kMod64: FSS_DCF_EVAL(W, fss::kMod64);     \
+    case fss::kMod128: FSS_DCF_EVAL(W, fss::kMod128);   \
+    case fss::kMod128np: FSS_DCF_EVAL(W, fss::kMod128np); \
     default: return (int)cudaErrorInvalidValue;         \
   }
     if (wide) {
@@ -152,6 +156,5 @@ extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
     }
 #undef FSS_DCF_EVAL_MODES
 #undef FSS_DCF_EVAL
-    return (int)cudaGetLastError();
   });
 }

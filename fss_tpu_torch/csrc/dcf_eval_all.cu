@@ -28,9 +28,10 @@
 // Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A domain of
 // 2^n leaves needs 2^n - 1 ChaCha blocks of 960 ops; at n = 24 that is ~1.6e10
 // ops (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 16 bytes of
-// shares (~0.08 ms at 3.35 TB/s). With AES: 4 (2^n - 1) blocks of 176
-// shared-memory lookups, ~1.2e10 LDS at n = 24 (~1.4 ms at 32 a clock x 132
-// SMs x 1.98 GHz before bank conflicts). A node takes 32 bytes of shared
+// shares (~0.08 ms at 3.35 TB/s). With AES: 4 (2^n - 1) blocks of 160
+// shared-memory lookups, ~1.1e10 LDS at n = 24 (~1.3 ms at 32 a clock x 132 SMs
+// x 1.98 GHz; AesTables below keeps them free of bank conflicts, its 64 KB at
+// the front of the dynamic shared memory). A node takes 32 bytes of shared
 // memory (36 with the 5-word accumulator), so a CTA of b = 12 levels holds
 // 64-72 KB and an SM three such CTAs; the accumulators never reach device
 // memory.
@@ -43,6 +44,9 @@
 #include "subtree.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
 
 template <int M>
 struct DcfNode {
@@ -155,8 +159,9 @@ __global__ void __launch_bounds__(256)
                         int walk, int b, uint32_t party, uint4 vmask4,
                         fss::Group g, const Prg prg) {
   constexpr int kAcc = fss::Acc<M>::kWords;
-  extern __shared__ uint4 smem[];
+  extern __shared__ uint4 smem_all[];
   prg.init();  // AES fills its shared tables; every thread, then a barrier
+  uint4* smem = smem_all + fss::kPrgSmem<Prg> / sizeof(uint4);
   const int cap = 1 << (b - 1);
   DcfTree<M, Prg> tree{prg, smem, reinterpret_cast<uint32_t*>(smem + cap),
                        cap, cws, cw_ls, out, acc_out,
@@ -189,7 +194,8 @@ int launch(const void* s0, const void* roots, const void* roots_acc,
            int grid_log2, int b, int party, uint4 vmask, const fss::Group& g,
            const Prg& prg, cudaStream_t stream) {
   auto kernel = dcf_eval_all_kernel<M, Prg>;
-  const size_t smem = (sizeof(uint4) + 4 * fss::Acc<M>::kWords) << (b - 1);
+  const size_t smem = fss::kPrgSmem<Prg> +
+                      ((sizeof(uint4) + 4 * fss::Acc<M>::kWords) << (b - 1));
   const int rc = fss::subtree_plan(kernel, grid_log2, b, smem);
   if (rc != 0) return rc;
   kernel<<<1u << grid_log2, fss::subtree_threads(b), smem, stream>>>(
@@ -227,7 +233,7 @@ extern "C" int fss_dcf_eval_all(const void* s0, const void* roots,
   const uint4 vmask = make_uint4(vmask0, vmask1, vmask2, vmask3);
   const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
   cudaStream_t st = (cudaStream_t)stream;
-  return fss::with_prg<4>(prg, [&](auto p) {
+  return fss::with_prg<4, AesTables>(prg, [&](auto p) {
 #define FSS_DCF_EVAL_ALL(M)                                              \
   launch<M>(s0, roots, roots_acc, cws, cw_ls, out, acc_out, grid_log2, b, \
             party, vmask, g, p, st)

@@ -18,10 +18,10 @@
 // registers for the whole walk so nothing but the key bytes touches
 // memory, and rotates are single funnel shifts.
 //
-// With AES: shared-memory lookups. A level is two AES blocks of 176 table
-// lookups (aes.cuh); at 2^20 keys x 16 levels that is ~5.9e9 LDS (~0.71 ms
-// at 32 a clock x 132 SMs x 1.98 GHz with no bank conflicts, and random
-// indices into one table conflict ~3-4 ways). The tables sit in shared
+// With AES: shared-memory lookups. A level is two AES blocks of 160 table
+// lookups (aes.cuh); at 2^20 keys x 16 levels that is ~5.4e9 LDS (~0.64 ms
+// at 32 a clock x 132 SMs x 1.98 GHz with no bank conflicts, which the
+// tables' layout, AesTables below, gives). The tables sit in shared
 // memory, the round keys in the parameter space, the state in registers.
 //
 // The cw is addressed through three strides (level, word, key), so the same
@@ -34,6 +34,9 @@
 #include "dpf_walk.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
 
 template <class Prg>
 __global__ void dpf_eval_kernel(const uint32_t* __restrict__ seeds,
@@ -72,11 +75,11 @@ extern "C" int fss_dpf_eval(const void* seeds, int64_t seed_ks,
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  return fss::with_prg<2>(prg, [&](auto p) {
-    dpf_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
-        cw_ks, (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, batch,
-        in_bits, party, p);
-    return (int)cudaGetLastError();
+  return fss::with_prg<2, AesTables>(prg, [&](auto p) {
+    return fss::launch_kernel<decltype(p)>(
+        dpf_eval_kernel<decltype(p)>, (unsigned)blocks, threads,
+        (cudaStream_t)stream, (const uint32_t*)seeds, seed_ks,
+        (const uint32_t*)cws, cw_ls, cw_ws, cw_ks, (const uint32_t*)xs, x_ks,
+        (int4*)so, (int32_t*)t_out, batch, in_bits, party, p);
   });
 }

@@ -23,12 +23,13 @@
 // Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A domain of
 // 2^n leaves needs 2^n - 1 ChaCha blocks of 960 ops; at n = 24 that is ~1.6e10
 // ops (~0.48 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 16 bytes of
-// shares (~0.08 ms at 3.35 TB/s). With AES: 2 (2^n - 1) blocks of 176
-// shared-memory lookups, ~5.9e9 LDS at n = 24 (~0.71 ms at 32 a clock x 132
-// SMs x 1.98 GHz before bank conflicts). Only the leaves reach device memory,
-// and the finalize costs a few ALU ops a leaf for every group but the
-// 128-bit one with a modulus that is not a power of two (a 127-step long
-// division a leaf).
+// shares (~0.08 ms at 3.35 TB/s). With AES: 2 (2^n - 1) blocks of 160
+// shared-memory lookups, ~5.4e9 LDS at n = 24 (~0.64 ms at 32 a clock x 132 SMs
+// x 1.98 GHz; AesTables below keeps them free of bank conflicts, its 64 KB at
+// the front of the dynamic shared memory). Only the leaves reach device memory,
+// and the finalize costs a few ALU ops a leaf for every group but the 128-bit
+// one with a modulus that is not a power of two (a 127-step long division a
+// leaf).
 
 #include <cuda_runtime.h>
 
@@ -37,6 +38,9 @@
 #include "subtree.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
 
 // The epilogues besides the shares of the five group kinds (fss::Mode).
 constexpr int kSeeds = 5;  // seeds with the clamped bit clear, t apart
@@ -115,8 +119,9 @@ __global__ void __launch_bounds__(256)
                         int4* __restrict__ out, int32_t* __restrict__ t_out,
                         int walk, int b, uint32_t party, fss::Group g,
                         const Prg prg) {
-  extern __shared__ uint4 nodes[];
+  extern __shared__ uint4 smem[];
   prg.init();  // AES fills its shared tables; every thread, then a barrier
+  uint4* nodes = smem + fss::kPrgSmem<Prg> / sizeof(uint4);
   DpfTree<E, Prg> tree{prg, nodes, cws, cw_ls, out, t_out,
                        (int64_t)blockIdx.x << b, party, g, {0u, 0u, 0u, 0u}};
   if constexpr (E < kSeeds) {
@@ -140,7 +145,7 @@ int launch(const void* s0, const void* roots, const void* cws, int64_t cw_ls,
            void* out, void* t_out, int grid_log2, int b, int party,
            const fss::Group& g, const Prg& prg, cudaStream_t stream) {
   auto kernel = dpf_eval_all_kernel<E, Prg>;
-  const size_t smem = sizeof(uint4) << (b - 1);
+  const size_t smem = fss::kPrgSmem<Prg> + (sizeof(uint4) << (b - 1));
   const int rc = fss::subtree_plan(kernel, grid_log2, b, smem);
   if (rc != 0) return rc;
   kernel<<<1u << grid_log2, fss::subtree_threads(b), smem, stream>>>(
@@ -171,7 +176,7 @@ extern "C" int fss_dpf_eval_all(const void* s0, const void* roots,
                                 const void* prg, void* stream) {
   const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
   cudaStream_t st = (cudaStream_t)stream;
-  return fss::with_prg<2>(prg, [&](auto p) {
+  return fss::with_prg<2, AesTables>(prg, [&](auto p) {
 #define FSS_DPF_EVAL_ALL(E)                                                 \
   launch<E>(s0, roots, cws, cw_ls, out, t_out, grid_log2, b, party, g, p, \
             st)

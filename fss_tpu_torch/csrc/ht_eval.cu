@@ -18,19 +18,22 @@
 // Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A key costs
 // in_bits ChaCha blocks of 960 ops against 16 bytes of cw read a level; at 2^20
 // keys x 16 levels that is ~1.6e10 ops (~0.48 ms at 128 lanes x 132 SMs x 1.98
-// GHz) but ~0.3 GB (~0.09 ms at 3.35 TB/s). With AES: one block of 176
-// shared-memory lookups a level, ~3.0e9 LDS (~0.36 ms at 32 a clock x 132 SMs x
-// 1.98 GHz before bank conflicts). The node and the 16-word ChaCha state stay
-// in registers for the whole walk; the hash key and the nonce are kernel
-// arguments, not compile-time constants as on the TPU, so a new key needs no
-// rebuild. Keys are wire rows [B, n, 8] read in place (key stride n * 8) or one
-// broadcast key (key stride 0).
+// GHz) but ~0.3 GB (~0.09 ms at 3.35 TB/s). With AES: one block of 160
+// shared-memory lookups a level, ~2.7e9 LDS (~0.32 ms at 32 a clock x 132 SMs x
+// 1.98 GHz; AesTables below keeps them free of bank conflicts). The node and
+// the 16-word ChaCha state stay in registers for the whole walk; the hash key
+// and the nonce are kernel arguments, not compile-time constants as on the TPU,
+// so a new key needs no rebuild. Keys are wire rows [B, n, 8] read in place
+// (key stride n * 8) or one broadcast key (key stride 0).
 
 #include <cuda_runtime.h>
 
 #include "prg.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 1>;
 
 template <class Prg>
 __global__ void ht_eval_kernel(const uint32_t* __restrict__ seeds,
@@ -97,11 +100,11 @@ extern "C" int fss_ht_eval(const void* seeds, int64_t seed_ks,
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  return fss::with_prg<1>(prg, [&](auto p) {
-    ht_eval_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
-        (const uint32_t*)xs, x_ks, (int4*)high, (int32_t*)low, batch,
-        in_bits, party, hk0, hk1, hk2, hk3, p);
-    return (int)cudaGetLastError();
+  return fss::with_prg<1, AesTables>(prg, [&](auto p) {
+    return fss::launch_kernel<decltype(p)>(
+        ht_eval_kernel<decltype(p)>, (unsigned)blocks, threads,
+        (cudaStream_t)stream, (const uint32_t*)seeds, seed_ks,
+        (const uint32_t*)cws, cw_ks, (const uint32_t*)xs, x_ks, (int4*)high,
+        (int32_t*)low, batch, in_bits, party, hk0, hk1, hk2, hk3, p);
   });
 }

@@ -24,17 +24,20 @@
 // 2^n leaves needs 2^(n-1) - 1 doubling blocks and 2^n conversion blocks of 960
 // ops, 1.5x a DPF's ChaCha work for the same domain; at n = 24 that is ~2.4e10
 // ops (~0.72 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 20 bytes of
-// leaves (~0.1 ms at 3.35 TB/s). With AES the same blocks do 176 shared-memory
-// lookups each, ~4.4e9 LDS at n = 24 (~0.53 ms at 32 a clock x 132 SMs x 1.98
-// GHz before bank conflicts). With L a template parameter the 2^L nodes are
-// registers, and a final launch stores its leaves as they are converted, so it
-// holds only its 2^(L-1) parents.
+// leaves (~0.1 ms at 3.35 TB/s). With AES the same blocks do 160 shared-memory
+// lookups each, ~4.0e9 LDS at n = 24 (~0.48 ms at 32 a clock x 132 SMs x 1.98
+// GHz; AesTables below keeps them free of bank conflicts). With L a template
+// parameter the 2^L nodes are registers, and a final launch stores its leaves
+// as they are converted, so it holds only its 2^(L-1) parents.
 
 #include <cuda_runtime.h>
 
 #include "prg.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 1>;
 
 template <int L, bool FINAL, class Prg>
 __global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
@@ -124,7 +127,7 @@ extern "C" int fss_ht_expand(const void* roots, const void* cw_rows,
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* in = (const uint32_t*)roots;
   const uint32_t* cw = (const uint32_t*)cw_rows;
-  return fss::with_prg<1>(prg, [&](auto p) {
+  return fss::with_prg<1, AesTables>(prg, [&](auto p) {
     using Prg = decltype(p);
     if (levels < 1 || levels > fss::kMaxLevels<Prg>)
       return (int)cudaErrorInvalidValue;
@@ -138,9 +141,8 @@ extern "C" int fss_ht_expand(const void* roots, const void* cw_rows,
         kernel = final ? ht_expand_kernel<3, true, Prg>
                        : ht_expand_kernel<3, false, Prg>;
     }
-    kernel<<<blocks, threads, 0, st>>>(in, cw, cw_ls, (int4*)out,
-                                       (int32_t*)low, count, hk0, hk1, hk2,
-                                       hk3, p);
-    return (int)cudaGetLastError();
+    return fss::launch_kernel<Prg>(kernel, blocks, threads, st, in, cw, cw_ls,
+                                   (int4*)out, (int32_t*)low, count, hk0, hk1,
+                                   hk2, hk3, p);
   });
 }

@@ -21,19 +21,22 @@
 // word 4, every other word 0. The group-typed output CW is torch glue on the
 // two leaves [B, 4] (ops/ht_cuda.py:gen_batch), as on the TPU.
 //
-// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. 2 (n-1) +
-// 4 ChaCha blocks of 960 ops a key against 32 bytes a row written; at 2^20
-// keys x 16 bits, ~3.4e10 ops (~1.02 ms at 128 lanes x 132 SMs x 1.98 GHz)
-// against ~0.6 GB (~0.18 ms at 3.35 TB/s). With AES the same blocks do 176
-// shared-memory lookups each, ~6.5e9 LDS (~0.78 ms at 32 a clock x 132 SMs
-// x 1.98 GHz before bank conflicts). Both nodes and the ChaCha state stay in
-// registers; each row goes out as two 16-byte stores.
+// Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. 2 (n-1) + 4
+// ChaCha blocks of 960 ops a key against 32 bytes a row written; at 2^20 keys x
+// 16 bits, ~3.4e10 ops (~1.02 ms at 128 lanes x 132 SMs x 1.98 GHz) against
+// ~0.6 GB (~0.18 ms at 3.35 TB/s). With AES the same blocks do 160
+// shared-memory lookups each, ~5.7e9 LDS (~0.68 ms at 32 a clock x 132 SMs x
+// 1.98 GHz; AesTables below keeps them free of bank conflicts). Both nodes and
+// the ChaCha state stay in registers; each row goes out as two 16-byte stores.
 
 #include <cuda_runtime.h>
 
 #include "prg.cuh"
 
 namespace {
+
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
 
 template <class Prg>
 __device__ __forceinline__ void ccr_hash(const Prg& prg,
@@ -140,10 +143,11 @@ extern "C" int fss_ht_gen(const void* seeds, const void* alphas,
   if (batch <= 0) return 0;
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
-  return fss::with_prg<1>(prg, [&](auto p) {
-    ht_gen_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)seeds, (const uint32_t*)alphas, a_ks, (int4*)cws,
-        (int4*)leaf0, (int4*)leaf1, batch, in_bits, hk0, hk1, hk2, hk3, p);
-    return (int)cudaGetLastError();
+  return fss::with_prg<1, AesTables>(prg, [&](auto p) {
+    return fss::launch_kernel<decltype(p)>(
+        ht_gen_kernel<decltype(p)>, (unsigned)blocks, threads,
+        (cudaStream_t)stream, (const uint32_t*)seeds, (const uint32_t*)alphas,
+        a_ks, (int4*)cws, (int4*)leaf0, (int4*)leaf1, batch, in_bits, hk0,
+        hk1, hk2, hk3, p);
   });
 }

@@ -39,6 +39,8 @@
 
 #include <cstdint>
 
+#include "prg.cuh"
+
 namespace fss {
 
 constexpr int kMaxSubtreeLevels = 12;
@@ -95,17 +97,13 @@ __device__ __forceinline__ void subtree_levels(Tree& tree, int n, int k) {
 }
 
 // Checks a launch's plan (2^grid_log2 CTAs of b levels) and sets the
-// kernel's dynamic shared memory limit where the subtree needs more than the
-// default 48 KB.
+// kernel's dynamic shared memory limit where the subtree (and the PRG's
+// tables) need more than the default 48 KB.
 template <class Kernel>
 int subtree_plan(Kernel kernel, int grid_log2, int b, size_t smem) {
   if (b < 1 || b > kMaxSubtreeLevels || grid_log2 < 0 || grid_log2 > 30)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  return 0;
+  return allow_smem(kernel, smem);
 }
 
 }  // namespace fss

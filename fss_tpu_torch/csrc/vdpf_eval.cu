@@ -29,6 +29,9 @@
 
 namespace {
 
+// The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
+using AesTables = fss::AesTables<32, 2>;
+
 constexpr int kBlake3 = 0;
 constexpr int kSha256 = 1;
 
@@ -97,14 +100,14 @@ extern "C" int fss_vdpf_eval(const void* seeds, int64_t seed_ks,
   const int threads = 128;
   const unsigned blocks = (unsigned)((batch + threads - 1) / threads);
   const HashKey hk{{h0, h1, h2, h3, h4, h5, h6, h7}};
-  return fss::with_prg<2>(prg, [&](auto p) {
+  return fss::with_prg<2, AesTables>(prg, [&](auto p) {
     using Prg = decltype(p);
     auto kernel = hash == kBlake3 ? vdpf_eval_kernel<kBlake3, Prg>
                                   : vdpf_eval_kernel<kSha256, Prg>;
-    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    return fss::launch_kernel<Prg>(
+        kernel, blocks, threads, (cudaStream_t)stream,
         (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ks,
         (const uint32_t*)xs, x_ks, (int4*)so, (int32_t*)t_out, (int4*)pi,
         batch, in_bits, party, hk, p);
-    return (int)cudaGetLastError();
   });
 }

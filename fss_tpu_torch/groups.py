@@ -271,3 +271,48 @@ def to_int(group, val) -> int:
         val = val.detach().cpu().numpy()
     lanes = np.asarray(val).astype(np.uint64) & np.uint64(MASK32)
     return int(sum(int(lanes[i]) << (32 * i) for i in range(4)))
+
+
+# ---------------------------------------------------------------------------
+# A group as the kernels take it (csrc/group.cuh)
+# ---------------------------------------------------------------------------
+
+# fss::Mode order: one kind per algebra.
+#   xor       Bytes.
+#   wrap      Uint, bits <= 64, mod 0 or a power of two.
+#   mod64     Uint, bits <= 64, any other mod.
+#   mod128    Uint(128) with a power-of-two mod (the clamped encoding).
+#   mod128np  Uint(128) with any other mod.
+MODES = ("xor", "wrap", "mod64", "mod128", "mod128np")
+
+
+def group_mode(group) -> str:
+    """The kernels' kind (fss::Mode) of ``group``."""
+    if isinstance(group, Bytes):
+        return "xor"
+    if not isinstance(group, Uint):
+        raise TypeError(f"unsupported group {group!r}")
+    if group.bits == 128:
+        return "mod128" if group._mod_is_pow2 else "mod128np"
+    if group.mod == 0 or group._mod_is_pow2:
+        return "wrap"
+    return "mod64"
+
+
+def bits_mask(bits: int) -> tuple:
+    """The 4 lane masks that keep the low ``bits`` bits."""
+    return tuple((1 << min(max(bits - 32 * i, 0), 32)) - 1
+                 for i in range(4))
+
+
+def gen_params(group) -> tuple:
+    """The kernels' fss::Group: (mask, mod) lanes. ``mask`` is what
+    ``from_block`` keeps of a (decoded) block; ``mod`` the modulus."""
+    mode = group_mode(group)
+    if mode == "xor":
+        return (MASK32,) * 4, (0,) * 4
+    if mode in ("wrap", "mod128"):  # a power-of-two mod narrows the width
+        return bits_mask(group.mod.bit_length() - 1 if group.mod
+                         else group.bits), (0,) * 4
+    return bits_mask(group.bits), tuple((group.mod >> (32 * i)) & MASK32
+                                        for i in range(4))

@@ -14,13 +14,8 @@ Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 version beside each wrapper (``*_plain``), which computes the same
 function and is what the CPU tests and the card's kernel checks compare
 with. Both kernels take every group of the port and every ``in_bits`` in
-1..128; the group decides a mode (:func:`group_mode`), one per algebra:
-
-  xor       Bytes.
-  wrap      Uint, bits <= 64, mod 0 or a power of two.
-  mod64     Uint, bits <= 64, any other mod.
-  mod128    Uint(128) with a power-of-two mod (the clamped encoding).
-  mod128np  Uint(128) with any other mod.
+1..128; the group decides a mode, one per algebra
+(``groups.group_mode``: xor, wrap, mod64, mod128, mod128np).
 
 The Eval kernel accumulates the path value raw in that mode (a 5-word
 exact sum for mod128np, 4 words otherwise; ``csrc/dcf_acc.cuh``), and
@@ -41,10 +36,10 @@ from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.block import MASK32, i32, u64
+from fss_tpu_torch.groups import MODES, bits_mask, gen_params, group_mode
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
 from fss_tpu_torch.schemes import dcf as _dcf
 
-MODES = ("xor", "wrap", "mod64", "mod128", "mod128np")  # fss::Mode order
 FULL = (MASK32,) * 4
 NOT_ONE = MASK32 ^ 1
 
@@ -61,29 +56,6 @@ _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
 # Group modes
 # ---------------------------------------------------------------------------
 
-def group_mode(group) -> str:
-    """The accumulator mode (and group kind) of ``group``."""
-    if isinstance(group, groups.Bytes):
-        return "xor"
-    if not isinstance(group, groups.Uint):
-        raise TypeError(f"unsupported group {group!r}")
-    if group.bits == 128:
-        return "mod128" if group._mod_is_pow2 else "mod128np"
-    if group.mod == 0 or group._mod_is_pow2:
-        return "wrap"
-    return "mod64"
-
-
-def _bits_mask(bits: int) -> tuple:
-    """The 4 lane masks that keep the low ``bits`` bits."""
-    return tuple((1 << min(max(bits - 32 * i, 0), 32)) - 1
-                 for i in range(4))
-
-
-def _lanes(value: int) -> tuple:
-    return tuple((value >> (32 * i)) & MASK32 for i in range(4))
-
-
 def value_mask(group) -> tuple:
     """The mask the Eval kernels apply to each value contribution before
     the add: none for xor and wrap (the finalize masks), the group's bits
@@ -92,25 +64,13 @@ def value_mask(group) -> tuple:
     if mode in ("xor", "wrap"):
         return FULL
     if mode == "mod64":
-        return _bits_mask(group.bits)
+        return bits_mask(group.bits)
     return (MASK32, MASK32, MASK32, NOT_ONE)
 
 
 def acc_words(mode: str) -> int:
     """Accumulator words: 5 (a 160-bit exact sum) for mod128np, else 4."""
     return 5 if mode == "mod128np" else 4
-
-
-def gen_params(group) -> tuple:
-    """The Gen kernel's fss::Group: (mask, mod) lanes. ``mask`` is what
-    ``from_block`` keeps of a (decoded) block; ``mod`` the modulus."""
-    mode = group_mode(group)
-    if mode == "xor":
-        return FULL, (0,) * 4
-    if mode in ("wrap", "mod128"):  # a power-of-two mod narrows the width
-        return _bits_mask(group.mod.bit_length() - 1 if group.mod
-                          else group.bits), (0,) * 4
-    return _bits_mask(group.bits), _lanes(group.mod)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
 version beside each wrapper (``*_plain``), which computes the same
 function and is what the CPU tests and the card's kernel checks compare
-with. Group conversion (``finalize``, ``output_cw``) is elementwise glue
-outside the kernels, as in the JAX package.
+with. The Gen kernel ends with the group-typed output CW when it is given
+betas and the group (``csrc/group.cuh``), so ``gen_batch`` is one launch;
+the Eval finalize is elementwise glue outside the kernel, as in the JAX
+package.
 
 Key layouts:
 
@@ -31,14 +33,16 @@ import torch
 
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
+from fss_tpu_torch import groups
 from fss_tpu_torch.schemes import dpf as _dpf
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.P, _build.I64, _build.P, _build.P,
               _build.I64, _build.INT, _build.INT, _build.P, _build.P)
-_GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.INT,
-             _build.INT, _build.P, _build.P, _build.P, _build.P, _build.I64,
-             _build.INT, _build.P, _build.P)
+_GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P, _build.P,
+             _build.INT, _build.INT, _build.P, _build.P, _build.P, _build.P,
+             _build.I64, _build.INT, _build.INT, *(_build.U32,) * 8,
+             _build.P, _build.P)
 
 
 def _device(*tensors) -> torch.device:
@@ -167,86 +171,101 @@ def wire_rows(in_bits: int, cws_p: torch.Tensor,
 # Gen
 # ---------------------------------------------------------------------------
 
-def _check_gen(s0s, alphas, in_bits):
+def _check_gen(s0s, alphas, in_bits, layout, ocw_row, betas, group):
+    if layout not in ("wire", "packed"):
+        raise ValueError(f"layout must be 'wire' or 'packed', got {layout}")
+    if (betas is None) != (group is None):
+        raise ValueError("the output CW needs both betas and the group")
+    if betas is not None and not ocw_row:
+        raise ValueError("the output CW needs the output row")
     B = s0s.shape[0]
-    dev = _device(s0s, alphas)
+    dev = _device(s0s, alphas, *(() if betas is None else (betas,)))
     _build.check(s0s, "s0s", dev, [(B, 2, 4)])
     _build.check(alphas, "alphas", dev,
                  [(B, 4)] if in_bits > 32 else [(B,), (B, 4)])
+    if betas is not None:
+        _build.check(betas, "betas", dev, [(B, 4)])
     if not 1 <= in_bits <= 128:
         raise ValueError(f"in_bits must be in 1..128, got {in_bits}")
     return dev
 
 
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, prg,
-               layout: str = "wire", ocw_row: bool = True):
+               layout: str = "wire", ocw_row: bool = True, betas=None,
+               group=None):
     """All levels of BGI Gen for a batch of keys, with ``prg`` (ChaCha or
-    AesMmo, mul=2).
+    AesMmo, mul=2), and the output CW given ``betas`` and ``group``.
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
-    in_bits > 32). Returns (cws, s0f [B, 4], s1f [B, 4], t0 [B], t1 [B]):
-    ``cws`` is wire rows (``layout="wire"``) or planes [in_bits, 5, B]
-    (``layout="packed"``). Wire rows are [B, in_bits+1, 8] with the
-    output-cw row zero, or [B, in_bits, 8] without it (``ocw_row=False``,
-    the VDPF's keys).
+    in_bits > 32); betas [B, 4] or None. Returns (cws, s0f [B, 4], s1f
+    [B, 4], t0 [B], t1 [B]): ``cws`` is wire rows (``layout="wire"``) or
+    (planes [in_bits, 5, B], ocw [B, 4]) (``layout="packed"``). Wire rows
+    are [B, in_bits+1, 8] with the output CW in the last row, or
+    [B, in_bits, 8] without it (``ocw_row=False``, the VDPF's keys, no
+    betas). Without betas the output CW is zero.
     """
-    if layout not in ("wire", "packed"):
-        raise ValueError(f"layout must be 'wire' or 'packed', got {layout}")
-    dev = _check_gen(s0s, alphas, in_bits)
+    dev = _check_gen(s0s, alphas, in_bits, layout, ocw_row, betas, group)
     arg, tag = _build.prg_arg(prg, 2)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, in_bits, prg, layout, ocw_row)
+        return gen_packed_plain(s0s, alphas, in_bits, prg, layout, ocw_row,
+                                betas, group)
     B = s0s.shape[0]
     rows = in_bits + int(ocw_row)
     shape = (B, rows, 8) if layout == "wire" else (in_bits, 5, B)
     cws = torch.empty(shape, dtype=torch.int32, device=dev)
+    ocw = (torch.empty((B, 4), dtype=torch.int32, device=dev)
+           if layout == "packed" else None)
     s0f = torch.empty((B, 4), dtype=torch.int32, device=dev)
     s1f = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t0 = torch.empty((B,), dtype=torch.int32, device=dev)
     t1 = torch.empty((B,), dtype=torch.int32, device=dev)
+    mode = groups.group_mode(group) if group is not None else "xor"
+    mask, mod = groups.gen_params(group) if group is not None else \
+        ((0,) * 4, (0,) * 4)
     fn = _build.function("dpf_gen", "fss_dpf_gen", _GEN_ARGS)
     _build.launch(
         "dpf_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
-        4 if alphas.dim() == 2 else 1, cws.data_ptr(),
-        int(layout == "wire"), rows, s0f.data_ptr(), s1f.data_ptr(),
-        t0.data_ptr(), t1.data_ptr(), B, in_bits, arg, device=dev,
+        4 if alphas.dim() == 2 else 1,
+        None if betas is None else betas.data_ptr(), cws.data_ptr(),
+        None if ocw is None else ocw.data_ptr(), int(layout == "wire"),
+        rows, s0f.data_ptr(), s1f.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+        B, in_bits, groups.MODES.index(mode), *mask, *mod, arg, device=dev,
         kernel="dpf_gen" + tag)
-    return cws, s0f, s1f, t0, t1
+    return (cws if ocw is None else (cws, ocw)), s0f, s1f, t0, t1
 
 
 def gen_packed_plain(s0s, alphas, in_bits: int, prg, layout: str = "wire",
-                     ocw_row: bool = True):
+                     ocw_row: bool = True, betas=None, group=None):
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
-    _check_gen(s0s, alphas, in_bits)
+    _check_gen(s0s, alphas, in_bits, layout, ocw_row, betas, group)
     _build.check_prg(prg, 2)
     a_bits = blk.input_bits_msb_first(_x_lanes(alphas), in_bits)
     rows, s0, s1, t0, t1 = _dpf.gen_levels(prg, in_bits, s0s, a_bits)
     planes = torch.stack(rows, dim=0).permute(0, 2, 1).contiguous()
-    if layout == "packed":
-        return planes, s0, s1, t0, t1
     B = s0s.shape[0]
-    cws = wire_rows(in_bits, planes, torch.zeros(
-        (B, 4), dtype=torch.int32, device=s0s.device))
+    ocw = (torch.zeros((B, 4), dtype=torch.int32, device=s0s.device)
+           if betas is None else _dpf.output_cw(group, s0, s1, t1, betas))
+    if layout == "packed":
+        return (planes, ocw), s0, s1, t0, t1
+    cws = wire_rows(in_bits, planes, ocw)
     return (cws if ocw_row else cws[:, :in_bits].contiguous()), s0, s1, t0, t1
 
 
 def output_cw(group, s0f, s1f, t1, betas) -> torch.Tensor:
-    """The group-typed final CW from the gen kernel's leaf outputs."""
+    """The group-typed final CW from the Gen's leaf outputs (plain)."""
     return _dpf.output_cw(group, s0f, s1f, t1, betas)
 
 
 def gen_batch(prg, group, in_bits: int, s0s, alphas,
               betas) -> torch.Tensor:
-    """Batched Gen into wire rows [B, in_bits+1, 8]; the output CW is
-    written in place into the kernel's zeroed last row."""
-    cws, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg, "wire")
-    cws[:, in_bits, :4] = output_cw(group, s0f, s1f, t1, betas)
-    return cws
+    """Batched Gen into wire rows [B, in_bits+1, 8], the output CW in the
+    last row: one launch."""
+    return gen_packed(s0s, alphas, in_bits, prg, "wire", betas=betas,
+                      group=group)[0]
 
 
 def gen_batch_packed(prg, group, in_bits: int, s0s, alphas, betas):
     """Batched Gen into the packed key layout: (planes [in_bits, 5, B],
-    ocw [B, 4])."""
-    cws_p, s0f, s1f, _, t1 = gen_packed(s0s, alphas, in_bits, prg,
-                                        "packed")
-    return cws_p, output_cw(group, s0f, s1f, t1, betas)
+    ocw [B, 4]), one launch."""
+    return gen_packed(s0s, alphas, in_bits, prg, "packed", betas=betas,
+                      group=group)[0]

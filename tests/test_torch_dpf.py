@@ -22,6 +22,7 @@ from fss_tpu_torch import block as tblk
 from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import dpf_cuda
+from fss_tpu_torch.prg.aes import AesMmo as TAesMmo
 from fss_tpu_torch.prg.chacha import ChaCha as TChaCha
 from fss_tpu_torch.schemes import dpf as tdpf
 from torch_threads import one_torch_thread  # noqa: F401
@@ -128,6 +129,43 @@ def test_gen_matches_jax(gname, rng):
     assert np.array_equal(_np(t0 ^ t1), np.ones(B, np.uint32))
 
 
+# One group of each kind the Gen kernel's output CW takes (csrc/group.cuh).
+OCW_GROUPS = {
+    "bytes": tgroups.Bytes(), "uint32": tgroups.Uint(32),
+    "uint64": tgroups.Uint(64),
+    "uint128_pow2": tgroups.Uint(128, 1 << 127),
+    "uint128": tgroups.Uint(128, (1 << 127) - 1)}
+
+
+@pytest.mark.parametrize("prg", ["chacha", "aes"])
+@pytest.mark.parametrize("gname", list(OCW_GROUPS))
+def test_gen_output_cw_in_the_gen(gname, prg, rng):
+    """Gen given betas and the group (the kernel's fused output CW) equals
+    Gen without them plus output_cw, in both layouts."""
+    in_bits, batch = 5, 37
+    g = OCW_GROUPS[gname]
+    prg2 = PRG2 if prg == "chacha" else TAesMmo(
+        2, [bytes(range(16)), bytes(range(16, 32))])
+    s0s, alphas, betas, _ = (to_cpu(a) for a in _inputs(rng, in_bits, batch))
+    cws, s0f, s1f, t0, t1 = dpf_cuda.gen_packed_plain(s0s, alphas, in_bits,
+                                                      prg2)
+    ocw = dpf_cuda.output_cw(g, s0f, s1f, t1, betas)
+    want = cws.clone()
+    want[:, in_bits, :4] = ocw
+    got = dpf_cuda.gen_packed(s0s, alphas, in_bits, prg2, betas=betas,
+                              group=g)
+    assert torch.equal(got[0], want)
+    for a, b in zip(got[1:], (s0f, s1f, t0, t1)):
+        assert torch.equal(a, b)
+    (planes, got_ocw), *_ = dpf_cuda.gen_packed_plain(
+        s0s, alphas, in_bits, prg2, "packed", betas=betas, group=g)
+    assert torch.equal(planes, dpf_cuda.pack_keys(cws, in_bits)[0])
+    assert torch.equal(got_ocw, ocw)
+    (bare, zero), *_ = dpf_cuda.gen_packed(s0s, alphas, in_bits, prg2,
+                                           "packed")
+    assert torch.equal(bare, planes) and not zero.any()
+
+
 def test_packed_keys_from_jax_match_wire_path(rng):
     """The JAX kernel's packed layout (in interpret mode, at the shape of
     the cases above, so the process compiles it once) crosses to the
@@ -226,6 +264,9 @@ def test_kernel_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         dpf_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
                             8, PRG2, layout="rows")
+    with pytest.raises(ValueError):  # the output CW needs betas and group
+        dpf_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
+                            8, PRG2, betas=s0)
     with pytest.raises(ValueError):  # the control bit starts as the party
         dpf_cuda.eval_packed(s0, cws, xs, 8, 2, PRG2)
     with pytest.raises(ValueError):

@@ -85,12 +85,48 @@ def test_gen_kernel_matches_plain(n, layout, cuda):
     alphas = _inputs(rng, n, batch, cuda)
     got = dpf_cuda.gen_packed(s0s, alphas, n, PRG2, layout=layout)
     want = dpf_cuda.gen_packed_plain(s0s, alphas, n, PRG2, layout=layout)
-    for a, b in zip(got, want):
+    if layout == "packed":  # (planes, ocw): the ocw zero without betas
+        assert not got[0][1].any()
+        got, want = (*got[0], *got[1:]), (*want[0], *want[1:])
+    for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
 
 
 GROUPS = (groups.Bytes(), groups.Uint(32), groups.Uint(64, (1 << 61) - 1),
           groups.Uint(128, 1 << 127), groups.Uint(128, (1 << 127) - 1))
+
+
+@pytest.mark.parametrize("layout", ["wire", "packed"])
+@pytest.mark.parametrize("n", [1, 16, 128])
+def test_gen_output_cw_matches_plain(n, layout, cuda):
+    """The Gen kernel given betas and the group: the output CW in the
+    last wire row or the packed ocw, every group kind, against the plain
+    version and against Gen plus the plain output_cw."""
+    rng = np.random.default_rng(150 + n)
+    batch = 1000
+    s0s, betas = _words(rng, (batch, 2, 4), cuda), _words(rng, (batch, 4),
+                                                          cuda)
+    alphas = _inputs(rng, n, batch, cuda)
+    bare = dpf_cuda.gen_packed(s0s, alphas, n, PRG2, layout)
+    for g in GROUPS + (groups.Uint(64),):
+        got = dpf_cuda.gen_packed(s0s, alphas, n, PRG2, layout, betas=betas,
+                                  group=g)
+        want = dpf_cuda.gen_packed_plain(s0s, alphas, n, PRG2, layout,
+                                         betas=betas, group=g)
+        keys = got[0] if layout == "wire" else got[0][0]
+        assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+        ocw = dpf_cuda.output_cw(g, *bare[1:3], bare[4], betas)
+        if layout == "wire":
+            assert torch.equal(keys, want[0])
+            assert torch.equal(keys[:, :n], bare[0][:, :n])
+            assert torch.equal(keys[:, n, :4], ocw)
+            assert not keys[:, n, 4:].any()
+        else:
+            assert torch.equal(keys, want[0][0])
+            assert torch.equal(keys, bare[0][0])
+            assert not bare[0][1].any()
+            assert torch.equal(got[0][1], want[0][1])
+            assert torch.equal(got[0][1], ocw)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 13])
@@ -130,6 +166,10 @@ def test_kernels_count_launches(cuda):
     d.eval_all(1, s0s[1], cws)
     assert {k: v for k, v in _build.launches.items() if v} == {
         "dpf_gen": 1, "dpf_eval": 1, "dpf_eval_all": 2}
+    # Gen is one launch in either layout, the output CW in it.
+    _build.reset_launches()
+    d.gen_batch(s0s[None], [5], [[1, 0, 0, 0]], layout="packed")
+    assert {k: v for k, v in _build.launches.items() if v} == {"dpf_gen": 1}
 
 
 @pytest.mark.parametrize(
@@ -137,6 +177,9 @@ def test_kernels_count_launches(cuda):
              if c["prg"] == "chacha"],
     ids=lambda c: f"{c['group']}-{c['in_bits']}")
 def test_golden_on_cuda(case, cuda):
+    """The ChaCha golden DPF cases through Dpf on the card: Gen (the
+    output CW in the kernel) in both layouts, both parties' shares and
+    the EvalAll digests."""
     def hexw(h):
         return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
 
@@ -149,6 +192,9 @@ def test_golden_on_cuda(case, cuda):
     cws = d.gen(s0s, int(case["alpha"], 0), hexw(case["beta"]))
     assert blk.to_numpy(cws).tobytes() == np.stack(
         [hexw(r) for r in case["cws"]]).tobytes()
+    packed = d.gen_batch(s0s[None], [int(case["alpha"], 0)],
+                         hexw(case["beta"])[None], layout="packed")
+    assert torch.equal(packed.to_wire(case["in_bits"])[0], cws)
     xs = [int(x, 0) for x in case["xs"]]
     for party in (0, 1):
         ys = blk.to_numpy(d.eval(party, s0s[party], cws, xs)).tobytes()

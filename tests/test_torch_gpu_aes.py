@@ -121,8 +121,54 @@ def test_dpf_gen(n, layout, cuda, monkeypatch):
     want = dpf_cuda.gen_packed_plain(s0s, alphas, n, PRG[2], **kw)
     launches = kernels_only(monkeypatch)
     got = dpf_cuda.gen_packed(s0s, alphas, n, PRG[2], **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if layout == "packed":  # (planes, ocw): the ocw zero without betas
+        assert not got[0][1].any()
+        got, want = (*got[0], *got[1:]), (*want[0], *want[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
     _aes_only(launches, "dpf_gen")
+
+
+@pytest.mark.parametrize("layout", ["wire", "packed"])
+@pytest.mark.parametrize("n", [1, 16, 128])
+def test_dpf_gen_output_cw(n, layout, cuda, monkeypatch):
+    """B-17 given betas and the group: the output CW in the kernel, every
+    group kind, against the plain version."""
+    rng = np.random.default_rng(150 + n)
+    s0s, betas = _words(rng, (BATCH, 2, 4), cuda), _words(rng, (BATCH, 4),
+                                                          cuda)
+    alphas = _inputs(rng, n, BATCH, cuda)
+    want = {m: dpf_cuda.gen_packed_plain(s0s, alphas, n, PRG[2], layout,
+                                         betas=betas, group=g)
+            for m, g in DCF_GROUPS.items()}
+    launches = kernels_only(monkeypatch)
+    for m, g in DCF_GROUPS.items():
+        got = dpf_cuda.gen_packed(s0s, alphas, n, PRG[2], layout,
+                                  betas=betas, group=g)
+        flat = [*got[0], *got[1:]] if layout == "packed" else got
+        ref = [*want[m][0], *want[m][1:]] if layout == "packed" else want[m]
+        assert all(torch.equal(a, b) for a, b in zip(flat, ref)), m
+    _aes_only(launches, "dpf_gen")
+
+
+@pytest.mark.parametrize("mode", list(DCF_GROUPS))
+@pytest.mark.parametrize("n", [1, 16, 128])
+def test_dcf_gen(n, mode, cuda, monkeypatch):
+    """B-18 in every mode, lt and gt, alpha as 1 lane (n <= 32) and as 4,
+    against its plain version."""
+    rng = np.random.default_rng(400 + n)
+    g = DCF_GROUPS[mode]
+    s0s, betas = _words(rng, (BATCH, 2, 4), cuda), _words(rng, (BATCH, 4),
+                                                          cuda)
+    lanes = blk.pack_inputs([int(v) % (1 << n) for v in rng.integers(
+        0, 2**63, size=BATCH)], n, cuda)
+    alphas = [lanes] + ([lanes[:, 0].contiguous()] if n <= 32 else [])
+    want = {(i, p): dcf_cuda.gen_packed_plain(s0s, a, betas, n, PRG[4], p, g)
+            for i, a in enumerate(alphas) for p in ("lt", "gt")}
+    launches = kernels_only(monkeypatch)
+    for (i, p), w in want.items():
+        assert torch.equal(dcf_cuda.gen_packed(s0s, alphas[i], betas, n,
+                                               PRG[4], p, g), w), (i, p)
+    _aes_only(launches, "dcf_gen")
 
 
 @pytest.mark.parametrize("mode", list(DCF_GROUPS))
