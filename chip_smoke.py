@@ -14,9 +14,9 @@ Phases, each printing one line (any failure exits non-zero):
      card, byte-exact (tolerance 0: integer crypto), every tree kernel
      with the ChaCha PRG and with AES-128-MMO (``SAMPLE``-size batches;
      the DPF, DCF, Half-Tree and VDPF walks at 16 and 48 or 128 bits; the
-     DPF and DCF EvalAll kernels for every group kind on both sides of
-     their plan's boundary, ``CHECK_PLANS``, and the DPF's seeds epilogue;
-     the Half-Tree and VDPF EvalAll at several domains); the DCF kernels
+     DPF, DCF and Half-Tree EvalAll kernels for every group kind on both
+     sides of their plan's boundary, ``CHECK_PLANS``, and the DPF's seeds
+     epilogue; the VDPF EvalAll at several domains); the DCF kernels
      in each of their five accumulator modes, and the DPF Gen's output CW
      for each of those five group kinds (wire and packed keys, 1, 16 and
      128 bits); the hash kernels also on the reference's primitive
@@ -80,15 +80,14 @@ DCF_MAIN_LOG2_KEYS = 20
 DCF_EVAL_ALL_BITS = (20, 24)
 HT_MAIN_LOG2_KEYS = 20
 HT_EVAL_ALL_BITS = (20, 24)
-# The DPF and DCF EvalAll kernel checks: (in_bits, most) on both sides of
-# the plan's boundary (eval_all_cuda.plan: a top launch of k = n - b levels,
-# then subtrees of b = min(most, ceil(n / 2)) levels; the top's CTAs walk
-# where k > most), at K = 2 most = 8, and the default plan (most 12) at 20
-# bits, for every group kind; and the default plan's own boundary, K = 24,
-# at 23 and 25 bits for Uint(32).
+# The DPF, DCF and Half-Tree EvalAll kernel checks: (in_bits, most) on both
+# sides of the plan's boundary (eval_all_cuda.plan: a top launch of k = n -
+# b levels, then subtrees of b = min(most, ceil(n / 2)) levels; the top's
+# CTAs walk where k > most), at K = 2 most = 8, and the default plan (most
+# 12) at 20 bits, for every group kind; and the default plan's own
+# boundary, K = 24, at 23 and 25 bits for Uint(32).
 CHECK_PLANS = ((1, 4), (2, 4), (7, 4), (8, 4), (9, 4), (20, 12))
 CHECK_WIDE_BITS = (23, 25)
-CHECK_HT_EVAL_ALL_BITS = (1, 8, 16, 20)
 DPF_SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all")
 DCF_SOURCES = ("dcf_eval", "dcf_gen", "dcf_eval_all")
 HT_SOURCES = ("ht_eval", "ht_gen", "ht_eval_all")
@@ -102,7 +101,7 @@ VDPF_SHA_KEY = (0xA1B2C3D4, 0x11223344, 0x55667788, 0x99AABBCC)
 AES_KEYS = tuple(bytes(range(16 * i, 16 * (i + 1))) for i in range(4))
 AES_LOG2_KEYS = 20
 AES_EVAL_ALL_BITS = (20, 24)
-CHECK_AES_EVAL_ALL_BITS = (8, 16)  # the Half-Tree's and the VDPF's
+CHECK_AES_EVAL_ALL_BITS = (8, 16)  # the VDPF's
 # The kernels each VDPF main path must launch: the fused eval, the DPF Gen
 # levels, the DPF expansion of EvalAll, and the hash kernels (H' in the
 # tree fold, the one-thread chain in prove).
@@ -448,7 +447,8 @@ def main() -> int:
     sass = {name: sass_usage(cuobjdump, _build.library(name))
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
                          "dcf_eval", "ht_eval", "dpf_eval_all",
-                         "dcf_eval_all", "dpf_gen", "dcf_gen")}
+                         "dcf_eval_all", "ht_eval_all", "dpf_gen",
+                         "dcf_gen")}
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
                              for h in ("blake3", "sha256")
@@ -484,9 +484,10 @@ def main() -> int:
     vg = groups.Uint(32)
 
     def eval_all_checks(P, tag):
-        """The DPF and DCF EvalAll kernels against their plain versions on
-        CHECK_PLANS for every group kind and both parties, the DPF's seeds
-        epilogue beside them, and the breadth-first schemes at 8 bits."""
+        """The DPF, DCF and Half-Tree EvalAll kernels against their plain
+        versions on CHECK_PLANS for every group kind and both parties, the
+        DPF's seeds epilogue beside them, and the breadth-first schemes at
+        8 bits."""
         plans = [(n, most, g) for n, most in CHECK_PLANS
                  for g in dcf_groups.values()]
         plans += [(n, eval_all_cuda.SUBTREE_LEVELS, groups.Uint(32))
@@ -496,9 +497,14 @@ def main() -> int:
             alpha = blk.pack_inputs([int(rng.integers(0, 2**n))], n, dev)
             cws = plain_dpf.gen(P[2], g, n, s0s, alpha, beta)[0]
             dcws = plain_dcf.gen(P[4], g, n, "lt", s0s, alpha, beta)[0]
+            hcws, hocw = (k[0] for k in plain_ht.gen(P[1], g, n, hk, s0s,
+                                                     alpha, beta))
             label = f"{tag} n={n} most={most} {g.name}"
             for party in (0, 1):
                 s0 = s0s[0, party]
+                hargs = (P[1], g, n, party, hash_key, s0, hcws, hocw, most)
+                hgot = eval_all_cuda.ht_eval_all(*hargs)
+                hwant = eval_all_cuda.ht_eval_all_plain(*hargs)
                 got = eval_all_cuda.eval_all(P[2], g, n, party, s0, cws,
                                              most)
                 want = eval_all_cuda.eval_all_plain(P[2], g, n, party, s0,
@@ -515,10 +521,16 @@ def main() -> int:
                                    f"party={party}", same(want, want_bf)))
                     checks.append((f"{label} dcf_eval_all breadth-first "
                                    f"party={party}", same(dwant, dwant_bf)))
+                    hwant_bf = plain_ht.eval_all(P[1], g, n, party, hk, s0,
+                                                 hcws, hocw)
+                    checks.append((f"{label} ht_eval_all breadth-first "
+                                   f"party={party}", same(hwant, hwant_bf)))
                 checks.append((f"{label} dpf_eval_all party={party}",
                                same(got, want)))
                 checks.append((f"{label} dcf_eval_all party={party}",
                                same(dgot, dwant)))
+                checks.append((f"{label} ht_eval_all party={party}",
+                               same(hgot, hwant)))
                 if isinstance(g, groups.Bytes):  # the VDPF's epilogue
                     got = eval_all_cuda.expand_leaves(P[2], n, party, s0,
                                                       cws[:n], most)
@@ -527,10 +539,10 @@ def main() -> int:
                     checks.append((f"{label} dpf_eval_all seeds "
                                    f"party={party}", same(got, want)))
 
-    def tree_checks(P, tag, wide, ht_ea_bits, vdpf_ea_bits):
+    def tree_checks(P, tag, wide, vdpf_ea_bits):
         """Every tree kernel with the PRGs ``P`` ({mul: PRG}) against its
         plain version: walks at 16 and ``wide`` bits, Gen at 16 and 48,
-        EvalAll (eval_all_checks; the Half-Tree's at ``ht_ea_bits``)."""
+        EvalAll (eval_all_checks; the VDPF's at ``vdpf_ea_bits``)."""
         for n in (16, wide):
             s0s, betas = words((B, 2, 4)), words((B, 4))
             alphas = domain(words((B, 4)), n)
@@ -640,20 +652,6 @@ def main() -> int:
                                                 hash_key)
                 checks.append((f"{tag} ht_gen n={n} alpha lanes={width}",
                                same(got, want)))
-        g = groups.Uint(128, 1 << 127)
-        for n in ht_ea_bits:
-            s0s, beta = words((1, 2, 4)), words((1, 4))
-            cws, ocw = plain_ht.gen(P[1], g, n, hk, s0s, blk.pack_inputs(
-                [int(rng.integers(0, 2**n))], n, dev), beta)
-            for party in (0, 1):
-                got = eval_all_cuda.ht_eval_all(P[1], g, n, party, hash_key,
-                                                s0s[0, party], cws[0],
-                                                ocw[0])
-                want = plain_ht.eval_all(P[1], g, n, party, hk,
-                                         s0s[0, party], cws[0], ocw[0])
-                checks.append((f"{tag} ht_eval_all n={n} party={party}",
-                               same(got, want)))
-
         # The fused VDPF eval, Gen (DPF Gen levels into VDPF rows + H), and
         # the DPF Gen's VDPF rows alone.
         for n in (16, wide):
@@ -713,10 +711,8 @@ def main() -> int:
                                        f"{fold} party={party}",
                                        same(got, want)))
 
-    tree_checks(CH, "chacha", 128, CHECK_HT_EVAL_ALL_BITS,
-                CHECK_VDPF_EVAL_ALL_BITS)
-    tree_checks(AES, "aes", 48, CHECK_AES_EVAL_ALL_BITS,
-                CHECK_AES_EVAL_ALL_BITS)
+    tree_checks(CH, "chacha", 128, CHECK_VDPF_EVAL_ALL_BITS)
+    tree_checks(AES, "aes", 48, CHECK_AES_EVAL_ALL_BITS)
     # The hash kernels on random rows, on the reference's primitive
     # vectors, and the one-thread chains on CHAIN_ROWS points.
     a_rows, b_rows, msgs = words((B, 4)), words((B, 4)), words((B, 4, 4))
@@ -1168,23 +1164,22 @@ def main() -> int:
     # 6. timing at the main-path shapes -----------------------------------
     def expanders(scheme, S, P):
         """EvalAll of S's largest domain through the kernels and through
-        their plain versions: (kernel, plain). The DPF and DCF are the
-        whole call, finalize included; the Half-Tree its expansion."""
+        their plain versions: (kernel, plain), each the whole call,
+        finalize included."""
         n = S["n_ea"]
-        if scheme in ("dpf", "dcf"):
-            seed = blk.words(S["ea_seeds"][0], dev)
-            key = blk.words(S["ea_key"][n], dev)
+        seed = blk.words(S["ea_seeds"][0], dev)
+        if scheme == "half_tree":
+            run, plain = (eval_all_cuda.ht_eval_all,
+                          eval_all_cuda.ht_eval_all_plain)
+            args = (P[1], S["g"], n, 0, hash_key, seed, *S["ea_key"][n])
+        else:
             run, plain = ((eval_all_cuda.eval_all,
                            eval_all_cuda.eval_all_plain) if scheme == "dpf"
                           else (eval_all_cuda.dcf_eval_all,
                                 eval_all_cuda.dcf_eval_all_plain))
-            args = (P[2 if scheme == "dpf" else 4], S["g"], n, 0, seed, key)
-            return (lambda: run(*args), lambda: plain(*args))
-        else:
-            args = (P[1], n, 0, hash_key, S["ea_seeds"][0], S["ea_key"][n][0])
-            run, plain = (eval_all_cuda.ht_expand_leaves,
-                          eval_all_cuda.ht_expand_packed_plain)
-        return (lambda: run(*args), lambda: run(*args, expand=plain))
+            args = (P[2 if scheme == "dpf" else 4], S["g"], n, 0, seed,
+                    blk.words(S["ea_key"][n], dev))
+        return (lambda: run(*args), lambda: plain(*args))
 
     def tree_rows(P, tag):
         """The tree kernels at the main-path shapes of the ``tag`` paths
@@ -1286,11 +1281,13 @@ def main() -> int:
              lambda: ht_cuda.gen_packed_plain(*hgv),
              nh * (2 * (MAIN_BITS - 1) + 4), 0,
              nh * (32 + 4 + MAIN_BITS * 32 + 2 * 16)),
-            # root and key rows in; each leaf's high and low out.
-            # 2^(n-1) - 1 doubling blocks and 2^n conversion blocks.
+            # the root 16 B, 20 B of key row a level and the output CW
+            # 16 B in; a 16 B share a leaf out. 2^(n-1) - 1 doubling blocks
+            # and 2^n conversion blocks (the CTAs' walks to their subtree
+            # roots are not work the function needs).
             ("ht_eval_all", hk_, hp,
              (1 << (hn_ea - 1)) - 1 + (1 << hn_ea), 0,
-             16 + hn_ea * 20 + (1 << hn_ea) * (16 + 4)),
+             16 + hn_ea * 20 + 16 + (1 << hn_ea) * 16),
             # seed 16 B, 20 B of cw a level, x 4 B in; seed 16 B, t 4 B and
             # pi 64 B out. The walk's blocks and the XorHash.
             ("vdpf_eval", lambda: vdpf_cuda.eval_packed(*vev),

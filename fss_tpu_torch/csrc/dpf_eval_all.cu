@@ -16,7 +16,8 @@
 // q breadth-first in shared memory, and its epilogue writes each leaf once,
 // either
 //   the share y = +-(from_block(s) (+ from_block(ocw) where t)) in the group
-//   (group.cuh; any of the five kinds), ocw = cws row n words 0-3, or
+//   (group.cuh: leaf_share; any of the five kinds), ocw = cws row n words
+//   0-3, or
 //   the seed with the clamped bit clear and t as its own [2^n] plane, which
 //   the VDPF hashes (kSeeds, ops/eval_all_cuda.py:expand_leaves).
 //
@@ -83,15 +84,6 @@ struct DpfTree {
                    ((b[3] ^ (cw3 & tm)) & ~1u) | tr);
   }
 
-  __device__ __forceinline__ int4 share(const Node& v) const {
-    uint32_t y[4] = {v.x, v.y, v.z, v.w & ~1u};
-    fss::from_block<E>(g, y);
-    if (v.w & 1u) fss::gadd<E>(g, y, oc);
-    if (party) fss::gneg<E>(g, y);
-    fss::into_block<E>(y);
-    return make_int4((int)y[0], (int)y[1], (int)y[2], (int)y[3]);
-  }
-
   __device__ __forceinline__ void leaves(int j, const Node& l,
                                          const Node& r) const {
     const int64_t i = base + 2 * j;
@@ -105,8 +97,8 @@ struct DpfTree {
       *reinterpret_cast<int2*>(t_out + i) =
           make_int2((int)(l.w & 1u), (int)(r.w & 1u));
     } else {
-      out[i] = share(l);
-      out[i + 1] = share(r);
+      out[i] = fss::leaf_share<E>(g, l, oc, party);
+      out[i + 1] = fss::leaf_share<E>(g, r, oc, party);
     }
   }
 };

@@ -1,6 +1,7 @@
 // The output groups on the device: 128-bit lane arithmetic and the exact
-// group operations of DCF Gen's levels (dcf_gen.cu) and of the DPF and DCF
-// EvalAll kernels' leaf finalize (dpf_eval_all.cu, dcf_eval_all.cu).
+// group operations of DCF Gen's levels (dcf_gen.cu) and of the DPF, DCF and
+// Half-Tree EvalAll kernels' leaf finalize (dpf_eval_all.cu,
+// dcf_eval_all.cu, ht_eval_all.cu: leaf_share).
 //
 // Device counterpart of fss_tpu_torch/groups.py. A value is 4 little-endian
 // uint32 lanes. Every group of the port falls in one of five kinds, which
@@ -23,6 +24,8 @@
 //              neg are mod m.
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -194,6 +197,21 @@ __device__ __forceinline__ void gneg(const Group& g, uint32_t a[4]) {
 #pragma unroll
     for (int w = 0; w < 4; ++w) a[w] = d[w];
   }
+}
+
+// The DPF's share of a leaf v (the seed or Half-Tree high part, its t or
+// low bit in the clamped bit): y = +-(from_block(seed) (+ oc where t)),
+// negated for party 1, as a block; oc = from_block(ocw).
+template <int M>
+__device__ __forceinline__ int4 leaf_share(const Group& g, const uint4& v,
+                                           const uint32_t oc[4],
+                                           uint32_t party) {
+  uint32_t y[4] = {v.x, v.y, v.z, v.w & ~1u};
+  from_block<M>(g, y);
+  if (v.w & 1u) gadd<M>(g, y, oc);
+  if (party) gneg<M>(g, y);
+  into_block<M>(y);
+  return make_int4((int)y[0], (int)y[1], (int)y[2], (int)y[3]);
 }
 
 }  // namespace fss

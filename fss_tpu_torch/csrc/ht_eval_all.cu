@@ -1,148 +1,202 @@
-// Half-Tree DPF full-domain expansion (EvalAll): one thread per node
-// expands it by L = 1..3 levels in registers and writes its 2^L
-// descendants in x order.
+// Half-Tree DPF full-domain evaluation (EvalAll) of one key in two launches:
+// the tree from the root to the leaves, the conversion level and the leaves'
+// group finalize.
 //
-// Replaces fss_tpu/ops/eval_all_pallas.py:ht_eval_all (_make_ht_kernel)
-// with the ChaCha PRG; with AES-128-MMO it is the card's AES Half-Tree
-// EvalAll, which the JAX package runs as XLA (a template over the PRG,
-// prg.cuh). A doubling level costs one mul=1 block a node:
+// Replaces fss_tpu/ops/eval_all_pallas.py:ht_eval_all (_make_ht_kernel) and
+// the finalize of fss_tpu/schemes/half_tree_dpf.py:eval_all with the ChaCha
+// PRG; with AES-128-MMO it is the card's AES Half-Tree EvalAll, which the JAX
+// package runs as XLA (a template over the PRG, prg.cuh). A node is the whole
+// 128-bit Half-Tree node, its control bit t in the clamped bit (LSB of word
+// 3). A doubling level costs one mul=1 block a node:
 //   left = H(hash_key ^ node) ^ (t ? cw : 0),  right = left ^ node,
-// with t the node's clamped bit and every XOR over all 128 bits (the
-// parent's t bit and the CW's low bit included). The conversion level
-// (FINAL) hashes each node twice, with its clamped bit set to sigma = 0
-// and 1, and writes 2 leaves a node: high = clear_lsb(h) ^ (t ? HCW : 0)
-// with the clamped bit clear, low = lsb(h) ^ (t & LCW_sigma). The L key
-// rows are read as uniform loads (every thread of the launch reads the
-// same bytes), the counterpart of the TPU kernel's SMEM cw table.
+// every XOR over all 128 bits (the parent's t bit and the CW's low bit
+// included). The conversion level, the domain's last, hashes each node twice,
+// its clamped bit set to sigma = 0 and 1, and makes both leaves of it: high =
+// clear_lsb(h) ^ (t ? HCW : 0), low = lsb(h) ^ (t & LCW_sigma), packed as one
+// node with low in the clamped bit. The key rows are uniform loads (every
+// thread of the launch reads the same bytes), the counterpart of the TPU
+// kernel's SMEM cw table.
 //
-// The caller runs the whole tree through this kernel, root first, in launches
-// of up to 3 levels (1 with AES, fss::kMaxLevels in prg.cuh); the conversion is
-// the last level of the last launch, so in_bits = 1 is one launch of the
-// conversion alone.
+// The plan is the DPF's (subtree.cuh): the top launch expands the first k
+// levels and writes the 2^k subtree roots (kNodes); the body launch's CTA q
+// expands root q breadth-first in shared memory, its last level the
+// conversion, and its epilogue writes each leaf's share once,
+// y = +-(from_block(high) (+ from_block(ocw) where low)) in the group
+// (group.cuh: leaf_share, any of the five kinds). At in_bits = 1 the one
+// launch is the conversion alone.
 //
 // Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. A domain of
 // 2^n leaves needs 2^(n-1) - 1 doubling blocks and 2^n conversion blocks of 960
 // ops, 1.5x a DPF's ChaCha work for the same domain; at n = 24 that is ~2.4e10
-// ops (~0.72 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 20 bytes of
-// leaves (~0.1 ms at 3.35 TB/s). With AES the same blocks do 160 shared-memory
+// ops (~0.72 ms at 128 lanes x 132 SMs x 1.98 GHz) against 2^24 x 16 bytes of
+// shares (~0.08 ms at 3.35 TB/s). With AES the same blocks do 160 shared-memory
 // lookups each, ~4.0e9 LDS at n = 24 (~0.48 ms at 32 a clock x 132 SMs x 1.98
-// GHz; AesTables below keeps them free of bank conflicts). With L a template
-// parameter the 2^L nodes are registers, and a final launch stores its leaves
-// as they are converted, so it holds only its 2^(L-1) parents.
+// GHz; AesTables below keeps them free of bank conflicts, at the front of the
+// dynamic shared memory). Only the shares reach device memory. The doubling's
+// hash and the conversion's two go through one PRG call site, a loop of one or
+// two iterations that is not unrolled, so ptxas sees one AES body a kernel.
 
 #include <cuda_runtime.h>
 
+#include "group.cuh"
 #include "prg.cuh"
+#include "subtree.cuh"
 
 namespace {
 
 // The AES tables' layout (aes.cuh): PERF.md section 6 has the measurements.
-using AesTables = fss::AesTables<32, 1>;
+using AesTables = fss::AesTables<32, 2>;
 
-template <int L, bool FINAL, class Prg>
-__global__ void ht_expand_kernel(const uint32_t* __restrict__ roots,
-                                 const uint32_t* __restrict__ cw_rows,
-                                 int64_t cw_ls, int4* __restrict__ out,
-                                 int32_t* __restrict__ low_out,
-                                 int64_t count, uint32_t hk0, uint32_t hk1,
-                                 uint32_t hk2, uint32_t hk3, const Prg prg) {
-  constexpr int D = FINAL ? L - 1 : L;  // doubling levels
-  prg.init();  // before any thread leaves: AES fills its shared tables
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= count) return;
-  uint32_t node[1 << D][4];
-#pragma unroll
-  for (int w = 0; w < 4; ++w) node[0][w] = __ldg(roots + r * 4 + w);
+// The epilogue besides the shares of the five group kinds (fss::Mode).
+constexpr int kNodes = 5;  // nodes, the next launch's roots
 
-#pragma unroll
-  for (int lvl = 0; lvl < D; ++lvl) {
-    const uint32_t* c = cw_rows + lvl * cw_ls;
+template <int E, class Prg>
+struct HtTree {
+  using Node = uint4;
+  const Prg& prg;
+  uint4* nodes;  // shared memory
+  const uint32_t* __restrict__ cws;
+  int64_t cw_ls;
+  int4* __restrict__ out;
+  int64_t base;   // the subtree's first leaf
+  int convert;    // the launch's conversion level, -1 for none
+  uint32_t hk[4];
+  uint32_t party;
+  fss::Group g;
+  uint32_t oc[4];  // from_block(ocw)
+
+  __device__ __forceinline__ Node load(int j) const { return nodes[j]; }
+  __device__ __forceinline__ void store(int j, const Node& v) const {
+    nodes[j] = v;
+  }
+
+  // A doubling level: l = H(hk ^ p) ^ (t ? cw : 0), r = l ^ p. The
+  // conversion: l and r are the leaves of sigma = 0 and 1, each H(hk ^
+  // (p with sigma in its clamped bit)) ^ (t ? cw_sigma : 0), where cw_0 is
+  // the row's SetLsb(HCW, LCW_0) and cw_1 is HCW with LCW_1 as its low bit.
+  __device__ __forceinline__ void expand(int lvl, const Node& p, Node& l,
+                                         Node& r) const {
+    const uint32_t* c = cws + lvl * cw_ls;
     const uint32_t c0 = __ldg(c), c1 = __ldg(c + 1), c2 = __ldg(c + 2);
     const uint32_t c3 = __ldg(c + 3);
-    // Backwards, so children 2j, 2j+1 never overwrite an unexpanded node.
-#pragma unroll
-    for (int j = (1 << lvl) - 1; j >= 0; --j) {
-      const uint32_t tm = 0u - (node[j][3] & 1u);
-      uint32_t h[4] = {node[j][0] ^ hk0, node[j][1] ^ hk1, node[j][2] ^ hk2,
-                       node[j][3] ^ hk3};
+    const bool conv = lvl == convert;
+    const uint32_t c3_1 = conv ? (c3 & ~1u) | (__ldg(c + 4) & 1u) : 0u;
+    const uint32_t tm = 0u - (p.w & 1u);
+    const uint32_t w3 = conv ? p.w & ~1u : p.w;
+#pragma unroll 1
+    for (uint32_t sigma = 0; sigma <= (uint32_t)conv; ++sigma) {
+      uint32_t h[4] = {p.x ^ hk[0], p.y ^ hk[1], p.z ^ hk[2],
+                       (w3 | sigma) ^ hk[3]};
       prg.expand1(h, h);
-      const uint32_t left[4] = {h[0] ^ (c0 & tm), h[1] ^ (c1 & tm),
-                                h[2] ^ (c2 & tm), h[3] ^ (c3 & tm)};
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        node[2 * j + 1][w] = left[w] ^ node[j][w];
-        node[2 * j][w] = left[w];
+      const Node a = make_uint4(h[0] ^ (c0 & tm), h[1] ^ (c1 & tm),
+                                h[2] ^ (c2 & tm),
+                                h[3] ^ ((sigma ? c3_1 : c3) & tm));
+      if (sigma) {
+        r = a;
+      } else {
+        l = a;
       }
     }
+    if (!conv) r = make_uint4(l.x ^ p.x, l.y ^ p.y, l.z ^ p.z, l.w ^ p.w);
   }
 
-  const int64_t base = r << L;
-  if constexpr (FINAL) {
-    const uint32_t* c = cw_rows + (L - 1) * cw_ls;
-    const uint32_t hcw0 = __ldg(c), hcw1 = __ldg(c + 1), hcw2 = __ldg(c + 2);
-    const uint32_t c3 = __ldg(c + 3);
-    const uint32_t lcw[2] = {c3 & 1u, __ldg(c + 4) & 1u};
-    const uint32_t hcw3 = c3 & ~1u;
-#pragma unroll
-    for (int j = 0; j < (1 << D); ++j) {
-      const uint32_t t = node[j][3] & 1u, tm = 0u - t;
-#pragma unroll
-      for (uint32_t sigma = 0; sigma < 2; ++sigma) {
-        uint32_t h[4] = {node[j][0] ^ hk0, node[j][1] ^ hk1,
-                         node[j][2] ^ hk2,
-                         ((node[j][3] & ~1u) | sigma) ^ hk3};
-        prg.expand1(h, h);
-        out[base + 2 * j + sigma] = make_int4(
-            (int)(h[0] ^ (hcw0 & tm)), (int)(h[1] ^ (hcw1 & tm)),
-            (int)(h[2] ^ (hcw2 & tm)), (int)((h[3] & ~1u) ^ (hcw3 & tm)));
-        low_out[base + 2 * j + sigma] = (int32_t)((h[3] & 1u) ^
-                                                  (t & lcw[sigma]));
-      }
+  __device__ __forceinline__ void leaves(int j, const Node& l,
+                                         const Node& r) const {
+    const int64_t i = base + 2 * j;
+    if constexpr (E == kNodes) {
+      reinterpret_cast<uint4*>(out)[i] = l;
+      reinterpret_cast<uint4*>(out)[i + 1] = r;
+    } else {
+      out[i] = fss::leaf_share<E>(g, l, oc, party);
+      out[i + 1] = fss::leaf_share<E>(g, r, oc, party);
     }
-  } else {
-#pragma unroll
-    for (int j = 0; j < (1 << L); ++j)
-      out[base + j] = make_int4((int)node[j][0], (int)node[j][1],
-                                (int)node[j][2], (int)node[j][3]);
   }
+};
+
+template <int E, class Prg>
+__global__ void __launch_bounds__(256)
+    ht_eval_all_kernel(const uint32_t* __restrict__ s0,
+                       const uint4* __restrict__ roots,
+                       const uint32_t* __restrict__ cws, int64_t cw_ls,
+                       int4* __restrict__ out,
+                       const uint32_t* __restrict__ ocw, int walk, int b,
+                       uint32_t party, uint4 hk, fss::Group g,
+                       const Prg prg) {
+  extern __shared__ uint4 smem[];
+  prg.init();  // AES fills its shared tables; every thread, then a barrier
+  uint4* nodes = smem + fss::kPrgSmem<Prg> / sizeof(uint4);
+  HtTree<E, Prg> tree{prg, nodes, cws, cw_ls, out,
+                      (int64_t)blockIdx.x << b,
+                      E == kNodes ? -1 : walk + b - 1,
+                      {hk.x, hk.y, hk.z, hk.w}, party, g, {0u, 0u, 0u, 0u}};
+  if constexpr (E != kNodes) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) tree.oc[w] = __ldg(ocw + w);
+    fss::from_block<E>(g, tree.oc);
+  }
+  if (threadIdx.x == 0) {
+    nodes[0] = roots != nullptr
+                   ? roots[blockIdx.x]
+                   : make_uint4(__ldg(s0), __ldg(s0 + 1), __ldg(s0 + 2),
+                                (__ldg(s0 + 3) & ~1u) | party);
+  }
+  __syncthreads();
+  fss::subtree_levels(tree, walk + b, walk);
+}
+
+template <int E, class Prg>
+int launch(const void* s0, const void* roots, const void* cws, int64_t cw_ls,
+           void* out, const void* ocw, int grid_log2, int b, int party,
+           uint4 hk, const fss::Group& g, const Prg& prg,
+           cudaStream_t stream) {
+  auto kernel = ht_eval_all_kernel<E, Prg>;
+  const size_t smem = fss::kPrgSmem<Prg> + (sizeof(uint4) << (b - 1));
+  const int rc = fss::subtree_plan(kernel, grid_log2, b, smem);
+  if (rc != 0) return rc;
+  kernel<<<1u << grid_log2, fss::subtree_threads(b), smem, stream>>>(
+      (const uint32_t*)s0, (const uint4*)roots, (const uint32_t*)cws, cw_ls,
+      (int4*)out, (const uint32_t*)ocw, roots != nullptr ? 0 : grid_log2, b,
+      (uint32_t)party, hk, g, prg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// roots: [count, 4] nodes; cw_rows: `levels` key rows, row i at
-// cw_rows[i * cw_ls] (words 0..4 read). final == 0: every row is a doubling
-// level and out gets the nodes [count << levels, 4]. final != 0: the last
-// row is the conversion level; out gets the leaves' high parts
-// [count << levels, 4] (clamped bit clear) and low [count << levels] their
-// low bits. hk0..hk3: the CCR hash key.
-// prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
-extern "C" int fss_ht_expand(const void* roots, const void* cw_rows,
-                             int64_t cw_ls, void* out, void* low,
-                             int64_t count, int levels, int final,
-                             uint32_t hk0, uint32_t hk1, uint32_t hk2,
-                             uint32_t hk3, const void* prg, void* stream) {
-  if (count <= 0) return 0;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((count + threads - 1) / threads);
+// One launch of the plan: 2^grid_log2 CTAs, each expanding b (1..12) levels
+// below its root: roots[q] ([2^grid_log2, 4] nodes) when roots is not null,
+// else the party's root seed s0 [4] (its clamped bit set to the party)
+// walked grid_log2 levels down. cws: row i of the launch's levels at
+// cws[i * cw_ls] (words 0..3; the walk's rows first; the conversion row's
+// word 4 is LCW_1). epilogue: fss::Mode -> the launch's last level is the
+// conversion and out [2^(grid_log2 + b), 4] gets the shares of the group of
+// that kind (mask0..3 and mod0..3: fss::Group) under the output CW ocw [4]
+// (a device pointer, so the call needs no read of the key on the host);
+// kNodes -> out gets the nodes, the next launch's roots. hk0..hk3: the CCR
+// hash key. prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
+extern "C" int fss_ht_eval_all(const void* s0, const void* roots,
+                               const void* cws, int64_t cw_ls, void* out,
+                               const void* ocw, int grid_log2, int b,
+                               int party, int epilogue, uint32_t hk0,
+                               uint32_t hk1, uint32_t hk2, uint32_t hk3,
+                               uint32_t mask0, uint32_t mask1, uint32_t mask2,
+                               uint32_t mask3, uint32_t mod0, uint32_t mod1,
+                               uint32_t mod2, uint32_t mod3, const void* prg,
+                               void* stream) {
+  const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
+  const uint4 hk = make_uint4(hk0, hk1, hk2, hk3);
   cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* in = (const uint32_t*)roots;
-  const uint32_t* cw = (const uint32_t*)cw_rows;
   return fss::with_prg<1, AesTables>(prg, [&](auto p) {
-    using Prg = decltype(p);
-    if (levels < 1 || levels > fss::kMaxLevels<Prg>)
-      return (int)cudaErrorInvalidValue;
-    auto kernel = final ? ht_expand_kernel<1, true, Prg>
-                        : ht_expand_kernel<1, false, Prg>;
-    if constexpr (fss::kMaxLevels<Prg> == 3) {
-      if (levels == 2)
-        kernel = final ? ht_expand_kernel<2, true, Prg>
-                       : ht_expand_kernel<2, false, Prg>;
-      if (levels == 3)
-        kernel = final ? ht_expand_kernel<3, true, Prg>
-                       : ht_expand_kernel<3, false, Prg>;
+#define FSS_HT_EVAL_ALL(E) \
+  launch<E>(s0, roots, cws, cw_ls, out, ocw, grid_log2, b, party, hk, g, p, st)
+    switch (epilogue) {
+      case fss::kXor: return FSS_HT_EVAL_ALL(fss::kXor);
+      case fss::kWrap: return FSS_HT_EVAL_ALL(fss::kWrap);
+      case fss::kMod64: return FSS_HT_EVAL_ALL(fss::kMod64);
+      case fss::kMod128: return FSS_HT_EVAL_ALL(fss::kMod128);
+      case fss::kMod128np: return FSS_HT_EVAL_ALL(fss::kMod128np);
+      case kNodes: return FSS_HT_EVAL_ALL(kNodes);
+      default: return (int)cudaErrorInvalidValue;
     }
-    return fss::launch_kernel<Prg>(kernel, blocks, threads, st, in, cw, cw_ls,
-                                   (int4*)out, (int32_t*)low, count, hk0, hk1,
-                                   hk2, hk3, p);
+#undef FSS_HT_EVAL_ALL
   });
 }

@@ -97,17 +97,6 @@ struct AesPrg {
   }
 };
 
-// The most tree levels the Half-Tree EvalAll kernel (ht_eval_all.cu)
-// expands in one launch with the PRG
-// (fss_tpu_torch/ops/eval_all_cuda.py:levels_per_launch). AES takes one:
-// its blocks are unrolled, so 2-3 levels (3-7 nodes, up to 28 blocks a
-// thread) take ptxas minutes a kernel. The DPF and DCF EvalAll kernels
-// keep every level but the leaves in shared memory instead (subtree.cuh).
-template <class Prg>
-constexpr int kMaxLevels = 3;
-template <int MUL, class T>
-constexpr int kMaxLevels<AesPrg<MUL, T>> = 1;
-
 // Bytes of dynamic shared memory the PRG's tables take at the front of a
 // kernel's: 0 for ChaCha.
 template <class Prg>

@@ -1,6 +1,6 @@
-// The plan of the DPF and DCF EvalAll kernels (dpf_eval_all.cu,
-// dcf_eval_all.cu): two launches a domain (one at in_bits = 1), one CTA a
-// subtree.
+// The plan of the DPF, DCF and Half-Tree EvalAll kernels (dpf_eval_all.cu,
+// dcf_eval_all.cu, ht_eval_all.cu): two launches a domain (one at in_bits =
+// 1), one CTA a subtree.
 //
 // A domain of 2^n leaves is cut at depth k = n - b into 2^k subtrees of b
 // levels (b = min(12, ceil(n / 2)), fss_tpu_torch/ops/eval_all_cuda.py:

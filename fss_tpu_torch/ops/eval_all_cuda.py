@@ -12,26 +12,21 @@ wrapper takes the scheme's PRG object (ChaCha or AesMmo). Nodes are packed
 carries its raw value accumulator (``ops/dcf_cuda.py``); a Half-Tree node
 is the whole 128-bit node, which holds t in the same bit.
 
-DPF and DCF: two launches a domain (one at in_bits = 1), at any in_bits
-(:func:`plan`). The 2^n leaves are cut into 2^k subtrees of b =
+Every scheme runs two launches a domain (one at in_bits = 1), at any
+in_bits (:func:`plan`). The 2^n leaves are cut into 2^k subtrees of b =
 :func:`subtree_levels` levels, k = n - b; the top launch expands the
 first k levels and writes the 2^k subtree roots to a scratch buffer, and
 each CTA of the body launch expands one subtree in shared memory and writes
 its leaves' finished shares, the group finalize done in the kernel
-(``csrc/subtree.cuh``), so no torch op runs over the leaves. The DPF
-kernel's seeds epilogue writes the leaf seeds and t bits instead
-(:func:`expand_leaves`), which the VDPF hashes. The plain versions
-(:func:`eval_all_plain`, :func:`expand_leaves_plain`,
-:func:`dcf_eval_all_plain`) follow the same plan, ``most`` included: each
-launch's walks from the root (batched), then its breadth-first levels.
-
-Half-Tree: every level runs through the kernel, the root's first, in
-launches of up to :func:`levels_per_launch` levels (the remainder first,
-so the last launches expand full strides): 3 with ChaCha, 1 with AES,
-whose unrolled blocks at 2-3 levels a launch take ptxas minutes a kernel.
-It counts its conversion level as one of its in_bits levels, and the last
-launch ends with the conversion, which writes 2 leaves a node, (high,
-low), in x order.
+(``csrc/subtree.cuh``), so no torch op runs over the leaves. The Half-Tree
+counts its conversion level as one of its in_bits levels: the body's last
+level makes both leaves of each node, so at in_bits = 1 the one launch is
+the conversion alone. The DPF kernel's seeds epilogue writes the leaf seeds
+and t bits instead (:func:`expand_leaves`), which the VDPF hashes. The
+plain versions (:func:`eval_all_plain`, :func:`expand_leaves_plain`,
+:func:`dcf_eval_all_plain`, :func:`ht_eval_all_plain`) follow the same
+plan, ``most`` included: each launch's walks from the root (batched), then
+its breadth-first levels.
 
 CUDA tensors go to the kernel (a failing build or launch raises), CPU
 tensors to the plain PyTorch versions.
@@ -45,7 +40,6 @@ from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch.block import i32
 from fss_tpu_torch.ops import dcf_cuda, ht_cuda, vdpf_cuda
-from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.schemes import _tree
 from fss_tpu_torch.schemes import dcf as _dcf
 from fss_tpu_torch.schemes import dpf as _dpf
@@ -53,59 +47,18 @@ from fss_tpu_torch.schemes import half_tree_dpf as _ht
 from fss_tpu_torch.schemes import vdpf as _vdpf
 
 SUBTREE_LEVELS = 12  # fss::kMaxSubtreeLevels of csrc/subtree.cuh
-LEVELS_PER_LAUNCH = 3  # the Half-Tree's; fss::kMaxLevels of csrc/prg.cuh
-AES_LEVELS_PER_LAUNCH = 1
 
 _DPF_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P, _build.P,
              *(_build.INT,) * 4, *(_build.U32,) * 8, _build.P, _build.P)
 _DCF_ARGS = (_build.P, _build.P, _build.P, _build.P, _build.I64, _build.P,
              _build.P, *(_build.INT,) * 4, *(_build.U32,) * 12, _build.P,
              _build.P)
-_HT_EXPAND_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
-                   _build.I64, _build.INT, _build.INT, *(_build.U32,) * 4,
-                   _build.P, _build.P)
-
-
-def levels_per_launch(prg) -> int:
-    """The most levels one EvalAll launch expands with ``prg``."""
-    return AES_LEVELS_PER_LAUNCH if isinstance(prg, AesMmo) \
-        else LEVELS_PER_LAUNCH
-
-
-def _check(roots, cw_rows, prg, row_words=5):
-    dev = roots.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    _build.check(roots, "roots", dev, [(roots.shape[0], 4)])
-    if cw_rows.dim() != 2 or cw_rows.shape[1] < row_words:
-        raise ValueError(f"cw_rows must be [L, >={row_words}], got "
-                         f"{tuple(cw_rows.shape)}")
-    if cw_rows.device != dev or cw_rows.dtype != torch.int32:
-        raise ValueError("cw_rows must be int32 on the roots' device")
-    if cw_rows.stride(1) != 1:
-        raise ValueError("cw_rows words must be contiguous")
-    most = levels_per_launch(prg)
-    if not 1 <= cw_rows.shape[0] <= most:
-        raise ValueError(f"1..{most} levels per launch, got "
-                         f"{cw_rows.shape[0]}")
-    return dev
-
-
-def _launch_levels(in_bits: int, party: int, prg):
-    """The level ranges (start, stop) of each launch: the remainder first,
-    then strides of levels_per_launch(prg)."""
-    if in_bits < 1:
-        raise ValueError(f"EvalAll needs in_bits >= 1, got {in_bits}")
-    if party not in (0, 1):
-        raise ValueError(f"party must be 0 or 1, got {party}")
-    step = levels_per_launch(prg)
-    first = in_bits % step or step
-    return [(0, first)] + [(lvl, lvl + step) for lvl in
-                           range(first, in_bits, step)]
+_HT_ARGS = (_build.P, _build.P, _build.P, _build.I64, _build.P, _build.P,
+            *(_build.INT,) * 4, *(_build.U32,) * 12, _build.P, _build.P)
 
 
 # ---------------------------------------------------------------------------
-# The DPF and DCF plan: two launches a domain, one CTA a subtree
+# The plan: two launches a domain, one CTA a subtree
 # ---------------------------------------------------------------------------
 
 def subtree_levels(in_bits: int, most: int = SUBTREE_LEVELS) -> int:
@@ -115,7 +68,7 @@ def subtree_levels(in_bits: int, most: int = SUBTREE_LEVELS) -> int:
 
 
 def plan(in_bits: int, most: int = SUBTREE_LEVELS):
-    """The launches of one DPF or DCF EvalAll (``csrc/subtree.cuh``):
+    """The launches of one EvalAll (``csrc/subtree.cuh``):
     [(first, walk, b)], a launch running tree levels first .. first + walk
     + b - 1, its CTAs each walking ``walk`` levels and expanding ``b``. At
     in_bits = 1 one launch; else the top launch, levels 0 .. k-1 with k =
@@ -326,65 +279,74 @@ def dcf_eval_all_plain(prg4, group, in_bits: int, party: int, s0, cws,
 # Half-Tree
 # ---------------------------------------------------------------------------
 
-def ht_expand_packed(roots: torch.Tensor, cw_rows: torch.Tensor, prg,
-                     hash_key, final: bool = False):
-    """Expand Half-Tree nodes [N, 4] by L = cw_rows.shape[0] levels (1..3)
-    with ``prg`` (ChaCha or AesMmo, mul=1) as the CCR hash.
-
-    cw_rows: [L, 8] (or [L, >=5]) int32 key rows of those levels. Without
-    ``final`` each row is a doubling level, and the nodes [N << L, 4] come
-    back in x order. With ``final`` the last row is the conversion level
-    (SetLsb(HCW, LCW_0), LCW_1), and the leaves come back in x order as
-    (high [N << L, 4] with the clamped bit clear, low [N << L]).
-    """
-    dev = _check(roots, cw_rows, prg)
-    arg, tag = _build.prg_arg(prg, 1)
-    if dev.type == "cpu":
-        return ht_expand_packed_plain(roots, cw_rows, prg, hash_key, final)
-    L = cw_rows.shape[0]
-    n = roots.shape[0] << L
-    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
-    low = torch.empty((n,), dtype=torch.int32, device=dev) if final else None
-    fn = _build.function("ht_eval_all", "fss_ht_expand", _HT_EXPAND_ARGS)
-    _build.launch(
-        "ht_eval_all", fn, roots.data_ptr(), cw_rows.data_ptr(),
-        cw_rows.stride(0), out.data_ptr(), low.data_ptr() if final else None,
-        roots.shape[0], L, int(final), *ht_cuda.hash_words(hash_key), arg,
-        device=dev, kernel="ht_eval_all" + tag)
-    return (out, low) if final else out
+# The Half-Tree kernel's epilogues: the shares of a group kind, or nodes for
+# the next launch (csrc/ht_eval_all.cu).
+_HT_EPILOGUES = (*dcf_cuda.MODES, "nodes")
 
 
-def ht_expand_packed_plain(roots, cw_rows, prg, hash_key,
-                           final: bool = False):
-    """Plain PyTorch version of :func:`ht_expand_packed`, on any device."""
-    _check(roots, cw_rows, prg)
-    _build.check_prg(prg, 1)
-    hk = ht_cuda.hash_block(hash_key, roots.device)
-    nodes = roots
-    for row in cw_rows[:-1] if final else cw_rows:
-        nodes = _ht.expand_level(prg, hk, nodes, row[0:4])
-    return _ht.convert_both(prg, hk, nodes, cw_rows[-1]) if final else nodes
-
-
-def ht_expand_leaves(prg1, in_bits: int, party: int, hash_key,
-                     s0: torch.Tensor, cws: torch.Tensor,
-                     expand=ht_expand_packed):
-    """Expand one Half-Tree key to its leaves: (high [2^n, 4], low [2^n])
-    in x order. ``expand`` is the per-launch step (the plain version can
-    be passed to time the same sequence without the kernel)."""
-    nodes = blk.set_lsb(s0, party)[None, :].contiguous()
-    for lo, hi in _launch_levels(in_bits, party, prg1):
-        nodes = expand(nodes, cws[lo:hi], prg1, hash_key,
-                       final=hi == in_bits)
-    return nodes
+def _check_ht(prg1, in_bits, party, s0, cws, ocw, most):
+    dev = _check_key(s0, cws, in_bits, party, in_bits, 5, most)
+    _build.check(ocw, "ocw", dev, [(4,)])
+    _build.check_prg(prg1, 1)
+    return dev
 
 
 def ht_eval_all(prg1, group, in_bits: int, party: int, hash_key,
-                s0: torch.Tensor, cws: torch.Tensor,
-                ocw: torch.Tensor) -> torch.Tensor:
+                s0: torch.Tensor, cws: torch.Tensor, ocw: torch.Tensor,
+                most: int = SUBTREE_LEVELS) -> torch.Tensor:
     """Full-domain Half-Tree evaluation of one key: [2^in_bits, 4] shares
-    in x order. ``prg1`` is the scheme's mul=1 PRG (ChaCha or AesMmo)."""
-    high, low = ht_expand_leaves(prg1, in_bits, party, hash_key, s0, cws)
+    in x order, for every group. ``prg1`` is the scheme's mul=1 PRG (ChaCha
+    or AesMmo); hash_key the CCR hash key (4 words); s0 the party's seed
+    [4]; cws its key rows [in_bits, >=5] (the last the conversion's); ocw
+    its output CW [4]. The :func:`plan`'s launches of
+    ``csrc/ht_eval_all.cu`` (``most``: its cap on :func:`subtree_levels`);
+    the body's last level is the conversion, then the finalize."""
+    dev = _check_ht(prg1, in_bits, party, s0, cws, ocw, most)
+    hk = ht_cuda.hash_words(hash_key)
+    if dev.type == "cpu":
+        return ht_eval_all_plain(prg1, group, in_bits, party, hk, s0, cws,
+                                 ocw, most)
+    arg, tag = _build.prg_arg(prg1, 1)
+    mask, mod = dcf_cuda.gen_params(group)
+    fn = _build.function("ht_eval_all", "fss_ht_eval_all", _HT_ARGS)
+    out = torch.empty((1 << in_bits, 4), dtype=torch.int32, device=dev)
+    roots = None
+    for first, walk, b in plan(in_bits, most):
+        last = first + walk + b == in_bits
+        dst = out if last else torch.empty(
+            (1 << (first + walk + b), 4), dtype=torch.int32, device=dev)
+        epilogue = dcf_cuda.group_mode(group) if last else "nodes"
+        _build.launch(
+            "ht_eval_all", fn, s0.data_ptr(),
+            None if roots is None else roots.data_ptr(), _rows(cws, first),
+            cws.stride(0), dst.data_ptr(), ocw.data_ptr(),
+            walk if roots is None else first, b, party,
+            _HT_EPILOGUES.index(epilogue), *hk, *mask, *mod, arg,
+            device=dev, kernel="ht_eval_all" + tag)
+        roots = dst
+    return out
+
+
+def ht_eval_all_plain(prg1, group, in_bits: int, party: int, hash_key,
+                      s0, cws, ocw, most: int = SUBTREE_LEVELS):
+    """Plain PyTorch version of :func:`ht_eval_all`, on any device, on the
+    kernel's plan: each launch's walks from the root, then its
+    breadth-first levels, the conversion last, then the finalize."""
+    _check_ht(prg1, in_bits, party, s0, cws, ocw, most)
+    hk = ht_cuda.hash_block(hash_key, s0.device)
+    nodes = None
+    for first, walk, b in plan(in_bits, most):
+        if nodes is None:
+            bits = _walk_bits(walk, s0.device)
+            B = bits.shape[0]
+            # walk + 1 domain bits: the point walk's `walk` hash levels
+            nodes = _ht.walk(prg1, walk + 1, party, hk, s0.expand(B, 4),
+                             lambda i: cws[i, 0:4].expand(B, 4), bits)
+        for i in range(first + walk, first + walk + b):
+            if i == in_bits - 1:
+                high, low = _ht.convert_both(prg1, hk, nodes, cws[i])
+            else:
+                nodes = _ht.expand_level(prg1, hk, nodes, cws[i, 0:4])
     return _dpf.finalize_leaves(group, party, high, low, ocw)
 
 

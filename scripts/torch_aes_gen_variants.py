@@ -244,8 +244,9 @@ def main() -> int:
                                      ocw_row=False)[0]
     ea_key = dpf.gen(aes[2], g, n_ea, ea_s0s, ea_alpha, ea_beta)[0]
     ea_dkey = dcf.gen(aes[4], g, n_ea, "lt", ea_s0s, ea_alpha, ea_beta)[0]
-    ea_hkey = half_tree_dpf.gen(aes[1], g, n_ea, blk.words(list(hk), dev),
-                                ea_s0s, ea_alpha, ea_beta)[0][0]
+    ea_hkey = [k[0] for k in half_tree_dpf.gen(
+        aes[1], g, n_ea, blk.words(list(hk), dev), ea_s0s, ea_alpha,
+        ea_beta)]
     ea_seed = ea_s0s[0, 0].contiguous()
 
     def gen_calls(P):
@@ -268,7 +269,7 @@ def main() -> int:
         vev = (s0, vcws, xs, n, 0, aes[2], sha)
         ea = (aes[2], g, n_ea, 0, ea_seed, ea_key)
         dea = (aes[4], g, n_ea, 0, ea_seed, ea_dkey)
-        hea = (aes[1], n_ea, 0, hk, ea_seed, ea_hkey)
+        hea = (aes[1], g, n_ea, 0, hk, ea_seed, *ea_hkey)
         return {
             "dpf_eval": (lambda: dpf_cuda.eval_packed(*ev),
                          lambda: dpf_cuda.eval_packed_plain(*ev)),
@@ -284,10 +285,8 @@ def main() -> int:
                              lambda: eval_all_cuda.eval_all_plain(*ea)),
             "dcf_eval_all": (lambda: eval_all_cuda.dcf_eval_all(*dea),
                              lambda: eval_all_cuda.dcf_eval_all_plain(*dea)),
-            "ht_eval_all": (lambda: eval_all_cuda.ht_expand_leaves(*hea),
-                            lambda: eval_all_cuda.ht_expand_leaves(
-                                *hea, expand=eval_all_cuda.
-                                ht_expand_packed_plain))}
+            "ht_eval_all": (lambda: eval_all_cuda.ht_eval_all(*hea),
+                            lambda: eval_all_cuda.ht_eval_all_plain(*hea))}
 
     def cuda_ms(fn):
         fn()

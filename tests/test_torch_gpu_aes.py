@@ -244,9 +244,9 @@ def test_vdpf_eval(n, hname, cuda, monkeypatch):
 @pytest.mark.parametrize("n", [1, 8, 16])
 def test_eval_all_expansions(n, cuda, monkeypatch):
     """The three EvalAll kernels, one key a scheme, both parties: the DPF's
-    shares and its seeds epilogue, the DCF in its wrap and mod128np modes
-    (each on the default plan and with subtrees of at most 2 levels), the
-    Half-Tree's expansion."""
+    shares and its seeds epilogue, the DCF in its wrap and mod128np modes,
+    the Half-Tree's shares (each on the default plan and with subtrees of
+    at most 2 levels)."""
     rng = np.random.default_rng(600 + n)
     hk = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
     s0s = _words(rng, (1, 2, 4), cuda)
@@ -257,10 +257,11 @@ def test_eval_all_expansions(n, cuda, monkeypatch):
     dcf_keys = {m: dcf_cuda.gen_packed(s0s, alpha, beta, n, PRG[4], "lt",
                                        DCF_GROUPS[m])[0]
                 for m in ("wrap", "mod128np")}
-    ht_key = ht_cuda.gen_packed(s0s, alpha, n, PRG[1], hk)[0][0]
+    ht_cws, ht_ocw = (k[0] for k in ht_cuda.gen_batch(PRG[1], g, n, hk, s0s,
+                                                      alpha, beta))
     E = eval_all_cuda
 
-    def expand_all(dpf_all, dpf_leaves, dcf_all, ht_step):
+    def expand_all(dpf_all, dpf_leaves, dcf_all, ht_all):
         out = []
         for p in (0, 1):
             s0 = s0s[0, p]
@@ -270,15 +271,15 @@ def test_eval_all_expansions(n, cuda, monkeypatch):
                 for m, key in dcf_keys.items():
                     out.append(dcf_all(PRG[4], DCF_GROUPS[m], n, p, s0, key,
                                        most))
-            out.append(E.ht_expand_leaves(PRG[1], n, p, hk, s0, ht_key,
-                                          expand=ht_step))
+                out.append(ht_all(PRG[1], g, n, p, hk, s0, ht_cws, ht_ocw,
+                                  most))
         return out
 
     want = expand_all(E.eval_all_plain, E.expand_leaves_plain,
-                      E.dcf_eval_all_plain, E.ht_expand_packed_plain)
+                      E.dcf_eval_all_plain, E.ht_eval_all_plain)
     launches = kernels_only(monkeypatch)
     got = expand_all(E.eval_all, E.expand_leaves, E.dcf_eval_all,
-                     E.ht_expand_packed)
+                     E.ht_eval_all)
     for a, b in zip(got, want):
         if isinstance(a, tuple):
             assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -89,21 +89,28 @@ def test_gen_kernel_matches_plain(n, lanes, cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# One group of each kind the kernel's finalize takes (csrc/group.cuh).
+GROUP_KINDS = {"xor": groups.Bytes(), "wrap": groups.Uint(32),
+               "mod64": groups.Uint(64, (1 << 61) - 1),
+               "mod128": groups.Uint(128, 1 << 127),
+               "mod128np": groups.Uint(128, (1 << 127) - 1)}
+
+
+@pytest.mark.parametrize("kind", list(GROUP_KINDS))
+@pytest.mark.parametrize("most", [2, 12])
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 13])
-def test_eval_all_kernel_matches_plain(n, cuda):
+def test_eval_all_kernel_matches_plain(n, most, kind, cuda):
     rng = np.random.default_rng(200 + n)
-    prg = ChaCha(1, NONCE)
+    g = GROUP_KINDS[kind]
     s0s = _words(rng, (1, 2, 4), cuda)
-    cws, _ = ht_cuda.gen_batch(PRG1, groups.Bytes(), n, HASH_KEY, s0s,
-                               _inputs(rng, n, 1, cuda, lanes=True),
-                               _words(rng, (1, 4), cuda))
+    cws, ocw = ht_cuda.gen_batch(PRG1, g, n, HASH_KEY, s0s,
+                                 _inputs(rng, n, 1, cuda, lanes=True),
+                                 _words(rng, (1, 4), cuda))
     for party in (0, 1):
-        got = eval_all_cuda.ht_expand_leaves(prg, n, party, HASH_KEY,
-                                             s0s[0, party], cws[0])
-        want = eval_all_cuda.ht_expand_leaves(
-            prg, n, party, HASH_KEY, s0s[0, party], cws[0],
-            expand=eval_all_cuda.ht_expand_packed_plain)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        args = (PRG1, g, n, party, HASH_KEY, s0s[0, party], cws[0], ocw[0],
+                most)
+        assert torch.equal(eval_all_cuda.ht_eval_all(*args),
+                           eval_all_cuda.ht_eval_all_plain(*args))
 
 
 def test_kernels_count_launches(cuda):
@@ -114,7 +121,7 @@ def test_kernels_count_launches(cuda):
     d.eval(0, s0s[0], cws, ocw, [4, 5])
     d.eval_all(1, s0s[1], cws, ocw)
     assert {k: v for k, v in _build.launches.items() if v} == {
-        "ht_gen": 1, "ht_eval": 1, "ht_eval_all": 4}
+        "ht_gen": 1, "ht_eval": 1, "ht_eval_all": 2}
 
 
 @pytest.mark.parametrize(

@@ -3,9 +3,12 @@ integer crypto), on the CPU.
 
 The JAX side is ``fss_tpu.schemes.half_tree_dpf.eval_all`` under
 ``jax.jit``, which the JAX suite holds equal to its Pallas kernel
-(tests/test_tree_kernels_pallas.py); the port runs every level through
-its expansion wrapper, which on the CPU takes the plain PyTorch version,
-in every split of the levels into launches.
+(tests/test_tree_kernels_pallas.py). The port's entry point takes its
+plain version on the CPU, which follows the kernel's plan
+(``eval_all_cuda.plan``: a top launch of k levels, then 2^k subtrees of
+b = min(most, ceil(n / 2)) levels, k = n - b, the last of them the
+conversion; the top's CTAs walk from the root first); ``most`` moves the
+plan's boundary to small domains.
 """
 
 import jax
@@ -23,6 +26,7 @@ from fss_tpu_torch import interop
 from fss_tpu_torch.ops import eval_all_cuda, ht_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.schemes import half_tree_dpf as tht
+from torch_jax import both_parties
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
@@ -35,10 +39,17 @@ GROUPS = {
     "uint127": (128, 1 << 127),
     "uint127m": (128, (1 << 127) - 1),
 }
+# One group of each kind the kernel's finalize takes (csrc/group.cuh).
+GROUP_KINDS = {
+    "xor": None,
+    "wrap": (32, 0),
+    "mod64": (64, (1 << 61) - 1),
+    "mod128": (128, 1 << 127),
+    "mod128np": (128, (1 << 127) - 1),
+}
 
 
-def groups_pair(gname):
-    spec = GROUPS[gname]
+def groups_pair(spec):
     if spec is None:
         return jgroups.Bytes(), tgroups.Bytes()
     return jgroups.Uint(*spec), tgroups.Uint(*spec)
@@ -72,7 +83,7 @@ def _key(rng, tg, in_bits):
     ("uint64", 1), ("uint127m", 2), ("uint127", 4), ("bytes", 7),
     ("uint32", 10)])
 def test_eval_all_matches_xla(gname, in_bits, rng):
-    jg, tg = groups_pair(gname)
+    jg, tg = groups_pair(GROUPS[gname])
     prg = JChaCha(1, NONCE)
     hk = rng.integers(0, 2**32, size=4, dtype=np.uint32)
     jhk = jax.numpy.asarray(hk)
@@ -100,48 +111,93 @@ def test_eval_all_matches_xla(gname, in_bits, rng):
                  torch.arange(2**in_bits) == alpha)
 
 
+@pytest.mark.parametrize("kind", list(GROUP_KINDS))
+def test_group_kinds_match_xla(kind, rng):
+    """Each group kind of the kernel's finalize, both parties, 5 bits on
+    both sides of the plan's boundary (subtrees of 2 levels under a top of
+    3, whose CTA walks one level; and the default, 3 under 2)."""
+    in_bits = 5
+    jg, tg = groups_pair(GROUP_KINDS[kind])
+    hk, s0s, cws, ocw = _key(rng, tg, in_bits)
+    jhk = jax.numpy.asarray(hk)
+    jocw = jax.numpy.asarray(tblk.to_numpy(ocw))
+    wants = both_parties(lambda p, s, c: jht.eval_all(
+        JChaCha(1, NONCE), jg, in_bits, p, jhk, s, c, jocw),
+        s0s, tblk.to_numpy(cws))
+    assert eval_all_cuda.plan(in_bits, 2) == [(0, 1, 2), (3, 0, 2)]
+    for party in (0, 1):
+        for most in (2, eval_all_cuda.SUBTREE_LEVELS):
+            got = eval_all_cuda.ht_eval_all(PRG1, tg, in_bits, party, hk,
+                                            to_cpu(s0s[party]), cws, ocw,
+                                            most)
+            assert np.array_equal(tblk.to_numpy(got), wants[party]), \
+                (party, most)
+
+
 @pytest.mark.parametrize("in_bits", [1, 2, 3, 4, 5, 6, 7])
 def test_level_split_matches_breadth_first(in_bits, rng):
-    """Every split of the levels into launches (remainder first, then
-    strides of 3, the conversion last) gives the plain scheme's
-    breadth-first EvalAll and its point Eval over the whole domain."""
+    """Every plan of the domain (most = 1..4: a top of k levels to 2^k
+    subtree roots, then b = n - k levels a subtree, the conversion last)
+    gives the plain scheme's breadth-first EvalAll and its point Eval over
+    the whole domain."""
     tg = tgroups.Uint(128, (1 << 127) - 1)
-    prg = ChaCha(1, NONCE)
     hk, s0s, cws, ocw = _key(rng, tg, in_bits)
     xs = torch.arange(1 << in_bits, dtype=torch.int32)
     for party in (0, 1):
         s0 = to_cpu(s0s[party])
-        want = tht.eval_all(prg, tg, in_bits, party,
+        want = tht.eval_all(PRG1, tg, in_bits, party,
                             ht_cuda.hash_block(hk, "cpu"), s0, cws, ocw)
-        got = eval_all_cuda.ht_eval_all(prg, tg, in_bits, party, hk, s0,
-                                        cws, ocw)
-        assert torch.equal(got, want)
         points = ht_cuda.eval_points(PRG1, tg, in_bits, party, hk, s0,
                                      cws, ocw, xs)
         assert torch.equal(points, want)
+        for most in (1, 2, 3, 4):
+            got = eval_all_cuda.ht_eval_all(PRG1, tg, in_bits, party, hk,
+                                            s0, cws, ocw, most)
+            assert torch.equal(got, want), (party, most)
 
 
-def test_ht_expand_packed_layouts(rng):
-    roots = to_cpu(rng.integers(0, 2**32, size=(5, 4), dtype=np.uint32))
-    rows = to_cpu(rng.integers(0, 2**32, size=(3, 8), dtype=np.uint32))
-    hk = (1, 2, 3, 4)
-    nodes = eval_all_cuda.ht_expand_packed(roots, rows, PRG1, hk)
-    high, low = eval_all_cuda.ht_expand_packed(roots, rows, PRG1, hk,
-                                               final=True)
-    assert nodes.shape == (40, 4) and high.shape == (40, 4)
-    assert low.shape == (40,) and not tblk.get_lsb(high).any()
-    # A final launch is its doubling levels, then the conversion alone.
-    parents = eval_all_cuda.ht_expand_packed(roots, rows[:2], PRG1, hk)
-    conv = eval_all_cuda.ht_expand_packed(parents, rows[2:], PRG1, hk,
-                                          final=True)
-    assert torch.equal(conv[0], high) and torch.equal(conv[1], low)
-    # Two launches of 1 and 2 levels equal one of 3.
-    step = eval_all_cuda.ht_expand_packed(roots, rows[:1], PRG1, hk)
-    assert torch.equal(eval_all_cuda.ht_expand_packed(step, rows[1:], PRG1,
-                                                      hk), nodes)
-    with pytest.raises(ValueError):
-        eval_all_cuda.ht_expand_packed(roots, torch.zeros(
-            (4, 8), dtype=torch.int32), PRG1, hk)
-    with pytest.raises(ValueError):
-        eval_all_cuda.ht_expand_leaves(ChaCha(1, NONCE), 3, 2, hk, roots[0],
-                                       rows)
+def test_plain_plan_and_argument_checks(rng, monkeypatch):
+    """ht_eval_all_plain runs the plan's levels: the top's one walk from
+    the root (batched over its CTAs), the rest breadth-first, the
+    conversion once, last; and both entry points refuse bad arguments."""
+    tg = tgroups.Uint(32)
+    hk, s0s, cws, ocw = _key(rng, tg, 9)
+    s0 = to_cpu(s0s[0])
+    calls = []
+    for name in ("walk", "expand_level", "convert_both"):
+        def spy(*args, _f=getattr(tht, name), _n=name):
+            out = _f(*args)
+            calls.append((_n, args[1] if _n == "walk" else
+                          args[2].shape[0]))
+            return out
+        monkeypatch.setattr(tht, name, spy)
+    # plan(9, 2): the top's 32 CTAs walk 5 levels and expand 2 more, the
+    # body's 128 expand 2, the second of them the conversion.
+    assert eval_all_cuda.plan(9, 2) == [(0, 5, 2), (7, 0, 2)]
+    got = eval_all_cuda.ht_eval_all_plain(PRG1, tg, 9, 0, hk, s0, cws, ocw,
+                                          2)
+    assert calls == [("walk", 6), ("expand_level", 32), ("expand_level", 64),
+                     ("expand_level", 128), ("convert_both", 256)]
+    monkeypatch.undo()
+    assert torch.equal(got, tht.eval_all(
+        PRG1, tg, 9, 0, ht_cuda.hash_block(hk, "cpu"), s0, cws, ocw))
+    bad = [
+        dict(party=2),
+        dict(in_bits=0),
+        dict(most=0),
+        dict(most=eval_all_cuda.SUBTREE_LEVELS + 1),
+        dict(cws=cws[:8]),                       # no conversion row
+        dict(cws=cws[:, :4].contiguous()),       # no LCW_1 word
+        dict(cws=cws.to(torch.int64)),
+        dict(s0=to_cpu(s0s)),                    # [2, 4], not one seed
+        dict(ocw=ocw[None]),                     # [1, 4], not one block
+        dict(hash_key=(1, 2, 3)),
+        dict(prg1=ChaCha(2, NONCE)),
+    ]
+    for fn in (eval_all_cuda.ht_eval_all, eval_all_cuda.ht_eval_all_plain):
+        for change in bad:
+            args = dict(prg1=PRG1, group=tg, in_bits=9, party=0,
+                        hash_key=hk, s0=s0, cws=cws, ocw=ocw)
+            args.update(change)
+            with pytest.raises((ValueError, TypeError)):
+                fn(**args)
