@@ -104,11 +104,11 @@ AES_EVAL_ALL_BITS = (20, 24)
 CHECK_AES_EVAL_ALL_BITS = (8, 16)  # the VDPF's
 # The kernels each VDPF main path must launch: the fused eval, the DPF Gen
 # levels, the DPF expansion of EvalAll, and the hash kernels (H' in the
-# tree fold, the one-thread chain in prove).
+# tree fold, the flat chain in prove).
 VDPF_KERNELS = {
     h: ("vdpf_eval", "dpf_gen", "dpf_eval_all", f"{h}_xor_hash",
         f"{h}_hash64", f"{h}_chain") for h in ("blake3", "sha256")}
-CHAIN_ROWS = 4096  # points of the one-thread chain checks and of prove
+CHAIN_ROWS = 4096  # points of the flat chain checks and of prove
 SAMPLE = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Peak 32-bit ALU ops: each of an SM's 4 schedulers dispatches one 32-lane
@@ -118,6 +118,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 LANES_PER_SM_CLOCK = 128
 CHACHA_OPS = 960  # 10 double rounds x 8 quarter-rounds x 12 ALU ops
 SASS_ALU = ("LOP3", "IADD3", "VIADD", "SHF", "PRMT", "IMAD", "LEA")
+# Of those, the ones a scheduler issues only to its ALU pipe (16 lanes: a
+# warp instruction every 2 clocks), and IMAD, which goes to the FMA pipe
+# (as wide); VIADD is counted apart.
+SASS_ALU_PIPE = ("LOP3", "IADD3", "SHF", "PRMT", "LEA")
 # One AES-128-MMO block (csrc/aes.cuh), the work the bounds count: 160
 # table lookups (144 in the 9 T-table rounds, 16 in the S-box round), each
 # one shared-memory load (LDS, 32 a clock per SM with no bank conflict),
@@ -360,11 +364,14 @@ def ptxas_usage(text: str) -> dict:
     return usage
 
 
-def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path) -> dict:
-    """``cuobjdump -sass`` of a library -> {kernel: [instructions, ALU
-    instructions (SASS_ALU), shared-memory loads (LDS)]}: a thread's count
-    for a kernel with no loop, a row's (the loop body, plus a little) for
-    the chains, a level's (plus a little) for the walks."""
+def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path,
+               pipes: bool = False) -> dict:
+    """``cuobjdump -sass`` of a library (or cubin) -> {kernel:
+    [instructions, ALU instructions (SASS_ALU), shared-memory loads (LDS)]},
+    and with ``pipes`` the ALU ones split by pipe as well: [..., ALU-pipe
+    (SASS_ALU_PIPE), IMAD, VIADD]. A thread's count for a kernel with no
+    loop, a row's (the loop body, plus a little) for the chains' roles, a
+    level's (plus a little) for the walks."""
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True,
                           timeout=300).stdout
@@ -375,8 +382,56 @@ def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path) -> dict:
             if op != "NOP"]
         usage[kernel_name(chunk.split(None, 1)[0])] = [
             len(ops), sum(op in SASS_ALU for op in ops),
-            sum(op == "LDS" for op in ops)]
+            sum(op == "LDS" for op in ops)] + ([
+                sum(op in SASS_ALU_PIPE for op in ops),
+                ops.count("IMAD"), ops.count("VIADD")] if pipes else [])
     return usage
+
+
+# The SHA-256 chain kernel's three roles, each alone in a kernel of its
+# own, so that the SASS counts show what each issues (the chain lane's are
+# one row's). Built from csrc/sha256.cu, never launched.
+CHAIN_ROLES_SRC = """#include "sha256.cu"
+__global__ void chain_lane_role_kernel(const uint32_t* cs, uint32_t* out,
+                                       int64_t n,
+                                       const __grid_constant__
+                                       fss::Sha256Key key) {
+  __shared__ Slot ring[kRing];
+  __shared__ HelperBuf hb;
+  __shared__ uint64_t full[kRing], empty[kRing], wbar, sbar[kPieces];
+  chain_lane(cs, out, n, key, ring, full, empty, hb, &wbar, sbar);
+}
+__global__ void chain_producer_role_kernel(const uint32_t* pts,
+                                           const uint32_t* cs, int64_t n,
+                                           const __grid_constant__
+                                           fss::Sha256Key key) {
+  __shared__ Slot ring[kRing];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  chain_producer<true>(pts, cs, n, key, ring[0], full, empty, 0);
+}
+__global__ void chain_helper_role_kernel(int64_t n,
+                                         const __grid_constant__
+                                         fss::Sha256Key key) {
+  __shared__ Slot ring[kRing];
+  __shared__ HelperBuf hb;
+  __shared__ uint64_t wbar, sbar[kPieces];
+  chain_helper(n, ring, hb, &wbar, sbar, ChainAdd{key.one});
+}
+"""
+
+
+def chain_role_usage(nvcc: str, cuobjdump: pathlib.Path,
+                     csrc: pathlib.Path, out_dir: pathlib.Path) -> dict:
+    """SASS counts (with pipes) of the chain's roles, CHAIN_ROLES_SRC built
+    into a cubin beside the libraries."""
+    src = out_dir / "sha256_chain_roles.cu"
+    src.write_text(CHAIN_ROLES_SRC)
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([nvcc, "-cubin", "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-I", str(csrc), "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    return sass_usage(cuobjdump, cubin, pipes=True)
 
 
 def main() -> int:
@@ -444,15 +499,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     usage = {name: ptxas_usage(text) for name, text in reports.items()}
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    sass = {name: sass_usage(cuobjdump, _build.library(name))
+    sass = {name: sass_usage(cuobjdump, _build.library(name),
+                             pipes=name in ("blake3", "sha256"))
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
                          "dcf_eval", "ht_eval", "dpf_eval_all",
                          "dcf_eval_all", "ht_eval_all", "dpf_gen",
                          "dcf_gen")}
+    sass["sha256 chain roles"] = chain_role_usage(
+        _build.nvcc(), cuobjdump, _build.CSRC, _build.BUILD_DIR)
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
-        sass=sass, hash_alu={f"{h} {u}": hash_alu(h, u)
-                             for h in ("blake3", "sha256")
-                             for u in ("xor_hash", "hash64")},
+        sass=sass, sass_fields=["instructions", "alu", "lds", "alu_pipe",
+                                "imad", "viadd"],
+        hash_alu={f"{h} {u}": hash_alu(h, u) for h in ("blake3", "sha256")
+                  for u in ("xor_hash", "hash64")},
         aes_block={"alu": AES_ALU, "lds": AES_LDS})
 
     # 3. kernels vs plain versions ----------------------------------------
@@ -714,7 +773,7 @@ def main() -> int:
     tree_checks(CH, "chacha", 128, CHECK_VDPF_EVAL_ALL_BITS)
     tree_checks(AES, "aes", 48, CHECK_AES_EVAL_ALL_BITS)
     # The hash kernels on random rows, on the reference's primitive
-    # vectors, and the one-thread chains on CHAIN_ROWS points.
+    # vectors, and the flat proof chains on CHAIN_ROWS points.
     a_rows, b_rows, msgs = words((B, 4)), words((B, 4)), words((B, 4, 4))
     pts, cs0 = words((CHAIN_ROWS, 4, 4)), words((4, 4))
     prims = json.loads((GOLDEN / "primitives.json").read_text())
@@ -1332,12 +1391,27 @@ def main() -> int:
          lambda: sha256_cuda.hash64_plain(VDPF_SHA_KEY, h_m),
          vkeys * hash_alu("sha256", "hash64"), vkeys * (64 + 32), 0),
     ]
+    # The flat proof chains on CHAIN_ROWS points (prove's shape): CHAIN_ROWS
+    # H' of 64 B in, cs 64 B in, the proof 64 B out. Their bound_ms is the
+    # contract's (bytes or ALU throughput); what sets their pace is one
+    # step's dependency chain (the latency bound, in the timing phase).
+    for name, mod, hashes in (("blake3", blake3_cuda, VDPF_IV),
+                              ("sha256", sha256_cuda, VDPF_SHA_KEY)):
+        hash_rows.append((
+            f"{name}_chain", f"fss_tpu_torch/csrc/{name}.cu",
+            "XLA: fss_tpu/schemes/vdpf.py:141 (prove, a lax.scan of H')",
+            lambda m=mod, h=hashes: m.chain(h, pts, cs0),
+            lambda m=mod, h=hashes: m.chain_plain(h, pts, cs0),
+            CHAIN_ROWS * hash_alu(name, "hash64"),
+            CHAIN_ROWS * 64 + 64 + 64, 0))
+        launches[f"{name}_chain"] = vlaunches[name][f"{name}_chain"]
     launches["sha256_hash64"] = vlaunches["sha256"]["sha256_hash64"]
     rows = []
     for name, src, replaces, kern, plain, ops, nbytes, lds in (
             tree_rows(CH, "") + hash_rows + tree_rows(AES, "_aes")):
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 2)
+        chain = name.endswith("_chain")  # ~10 ms a call; plain ~1 s
+        ms = cuda_ms(kern, 5 if chain else 20)
+        plain_ms = cuda_ms(plain, 1 if chain else 2)
         err = max_abs_err(kern(), plain())
         bound_ms, bound_by = bound(ops, nbytes, lds)
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -1440,30 +1514,12 @@ def main() -> int:
                 bound(vkeys * (MAIN_BITS * CHACHA_OPS
                                + hash_alu("sha256", "xor_hash")),
                       vkeys * (16 + MAIN_BITS * 20 + 4 + 16 + 4 + 64)))
-    chain_ms = {name: cuda_ms(lambda h=v["d"].hashes: vdpf_cuda.prove(
-        h, pts, cs0), 3) for name, v in vmain.items()}
-
-    def once_ms(fn):
-        """Host-clock time of one call, synchronised on both sides."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    # The chains' plain versions (one call each: Python ints on the host)
-    # and bounds: CHAIN_ROWS H' of 64 B in, cs 64 B in, the proof 64 B out
-    # (a throughput bound); and one thread's dependency chain, which sets
-    # their pace: CHAIN_ROWS x hash_depth x ALU_LATENCY_CLOCKS at the max
-    # SM clock (the latency bound).
-    chain_plain_ms = {name: once_ms(lambda h=v["d"].hashes:
-                                    vdpf_cuda.prove_plain(h, pts, cs0))
-                      for name, v in vmain.items()}
-    chain_bound = {name: bound(CHAIN_ROWS * hash_alu(name, "hash64"),
-                               CHAIN_ROWS * 64 + 64 + 64)
-                   for name in vmain}
+    # The chains (their rows of the kernels line), beside the latency
+    # bound that sets their pace: CHAIN_ROWS x hash_depth x
+    # ALU_LATENCY_CLOCKS at the max SM clock; and their clocks a row at it.
     chain_latency = {name: CHAIN_ROWS * hash_depth(name) * ALU_LATENCY_CLOCKS
                      / (max_mhz * 1e3) for name in vmain}
+    chain_rows = {name: by_name[f"{name}_chain"] for name in vmain}
     t0 = time.perf_counter()
     draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
     draw_s = time.perf_counter() - t0
@@ -1494,7 +1550,11 @@ def main() -> int:
         "pi_tilde_ms": cuda_ms(lambda: blake3_cuda.xor_hash(VDPF_IV, ex, es),
                                3),
         "tree_fold_ms": cuda_ms(lambda: vdpf_cuda.fold(
-            vd.hashes, epts, vea_k[vn_ea][2], "tree"), 3)}
+            vd.hashes, epts, vea_k[vn_ea][2], "tree"), 3),
+        # The SHA-256 fold over the same 2^n rows (its cost does not depend
+        # on their bytes): 2^n - 1 H' in n + 1 launches.
+        "sha256_tree_fold_ms": cuda_ms(lambda: vdpf_cuda.fold(
+            vsd.hashes, epts, vea_k[vn_ea][2], "tree"), 3)}
     del es, et, ex, epts
     log("timing", scheme="vdpf", prg="ChaCha", card=kind,
         power_limit=smi.split(",")[-1].strip(),
@@ -1508,13 +1568,14 @@ def main() -> int:
         vdpf_eval_sha256_kernel_ms=sha_eval[0],
         vdpf_eval_sha256_plain_ms=sha_eval[1],
         vdpf_eval_sha256_bound_ms=sha_eval[2],
-        chain_ms={n: {"rows": CHAIN_ROWS, "ms": ms,
-                      "plain_ms": chain_plain_ms[n],
-                      "bound_ms": chain_bound[n][0],
-                      "bound_by": chain_bound[n][1],
+        chain_ms={n: {"rows": CHAIN_ROWS, "ms": r["ms"],
+                      "plain_ms": r["plain_ms"],
+                      "clocks_per_row": r["ms"] * max_mhz * 1e3 / CHAIN_ROWS,
+                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                       "depth": hash_depth(n),
-                      "latency_bound_ms": chain_latency[n]}
-                  for n, ms in chain_ms.items()},
+                      "latency_bound_ms": chain_latency[n],
+                      "latency_bound_share": chain_latency[n] / r["ms"]}
+                  for n, r in chain_rows.items()},
         vdpf_eval_all_items_per_s={
             n: {k: (1 << k) / (ms / 1e3) for k, ms in t[2].items()}
             for n, t in vtimes.items()},

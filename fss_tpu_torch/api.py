@@ -360,7 +360,7 @@ class Vdpf(_TreeScheme):
                  fold: str = "reference"):
         """Full-domain evaluation of one key and its proof: (ys
         [2^in_bits, 4], pi [4, 4]). ``fold``: "reference" (the reference's
-        flat chain, 2^n dependent hashes in one thread), "tree" (a Merkle
+        flat chain, 2^n dependent hashes in one chain kernel), "tree" (a Merkle
         fold, one batched H' a level) or "chunked" (chains of 256, then a
         chain of their proofs). The folds give different proofs: both
         parties must pick the same one."""

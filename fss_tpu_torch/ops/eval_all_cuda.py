@@ -364,7 +364,7 @@ def vdpf_eval_all(prg2, hashes, group, in_bits: int, party: int,
     EvalAll kernel with its seeds epilogue (:func:`expand_leaves`), the
     DPF's finalize, pi~ of the whole domain through the XorHash kernel (x
     as lane 0), the t ? cs : 0 correction in place, and ``fold``:
-    "reference" (the flat chain, one thread), "tree" (one H' launch a
+    "reference" (the flat chain kernel), "tree" (one H' launch a
     level) or "chunked". Both parties must use the same fold. cws are VDPF
     rows [in_bits, 8].
     """

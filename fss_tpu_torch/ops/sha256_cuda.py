@@ -5,14 +5,18 @@ Counterpart of ``fss_tpu.ops.sha256_pallas``. The XorHash kernel replaces
 ``sha256_pallas.xor_hash_planes`` (H, :func:`xor_hash`). :func:`hash64`
 (H' = SHA-256(key || msg)) is the counterpart of ``Sha256.hash64``, which
 the JAX package runs as XLA, and :func:`chain` of its ``lax.scan`` of H'
-(``schemes/vdpf.py:prove``): the SHA-256 proof folds run on the card as
-one launch a level and one thread for the flat chain. The source file
-says what bounds each kernel on the H100.
+(``schemes/vdpf.py:prove``): the SHA-256 tree fold runs on the card as one
+launch a level, and the flat chain as one CTA whose producer warps prepare
+each point's chain-free work in a ring of ``CHAIN_RING`` slots in shared
+memory ahead of the lane that carries pi. The source file says what bounds
+each kernel on the H100.
 
 Dispatch, shapes and plain versions as in ``ops/blake3_cuda.py``; the
 plain versions call ``hash/sha256.py:compress_words``, on tensors, or on
-Python ints for the one-thread chain. The key (4 little-endian lanes)
-reaches the kernels as 4 uint32 arguments.
+Python ints for the chain. The key (4 little-endian lanes) reaches the
+kernels as 4 uint32 arguments; the entry points turn it into the launch
+constants of H' (the state after the key's rounds, the key's schedule
+terms) on the host.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ _XOR_ARGS = (_build.P, _build.P, _build.P, _build.I64, *(_build.U32,) * 4,
 _H64_ARGS = (_build.P, _build.P, _build.I64, *(_build.U32,) * 4, _build.P)
 _CHAIN_ARGS = (_build.P, _build.P, _build.P, _build.I64,
                *(_build.U32,) * 4, _build.P)
+CHAIN_RING = 16  # the chain kernel's ring slots (kRing in csrc/sha256.cu)
 
 
 def _hash64_words(key, m):
@@ -98,7 +103,8 @@ def hash64_plain(key, msg) -> torch.Tensor:
 
 def chain(key, pts: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     """The flat proof fold over pi_tildes [N, 4, 4] from cs [4, 4], as
-    ``blake3_cuda.chain``. Returns [4, 4]."""
+    ``blake3_cuda.chain``: one CTA, whatever N, with no scratch in device
+    memory. Returns [4, 4]."""
     dev = check_chain(pts, cs)
     if dev.type == "cpu":
         return chain_plain(key, pts, cs)
@@ -112,7 +118,7 @@ def chain(key, pts: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
 
 def chain_plain(key, pts, cs) -> torch.Tensor:
     """Plain version of :func:`chain`, on any device: the same fold on the
-    host in Python ints, one point at a time, as the kernel's one thread
-    does it (torch ops on one row would cost ~6,000 dispatches a point)."""
+    host in Python ints, one point at a time (torch ops on one row would
+    cost ~6,000 dispatches a point)."""
     check_chain(pts, cs)
     return _vdpf.prove_scalar(lambda m: _hash64_words(key, m), pts, cs)

@@ -99,7 +99,7 @@ def hash64_plain(hashes, msg: torch.Tensor) -> torch.Tensor:
 
 def prove(hashes, pi_tildes: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
     """The reference's flat fold of pi_tildes [N, 4, 4] from cs [4, 4]:
-    one thread's chain of H' on the card."""
+    the hash's chain kernel on the card."""
     k = _kernels(hashes, pi_tildes.device)
     pts, cs = pi_tildes.contiguous(), cs.contiguous()
     return k[0].chain(k[1], pts, cs) if k else _vdpf.prove(hashes.hash64,

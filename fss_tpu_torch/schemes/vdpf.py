@@ -104,7 +104,7 @@ def prove_scalar(hash64_words, pi_tildes: torch.Tensor,
     cs, and each point in index order folds in as pi[:2] ^= H'(pi ^ pi~_i).
     ``hash64_words`` maps 16 words to 8; pi_tildes [N, 4, 4], cs [4, 4].
     Returns [4, 4]. The flat fold is scalar work: this is the plain
-    version of the card's one-thread chain."""
+    version of the card's chain kernels."""
     pi = blk.u64(cs).reshape(16).tolist()
     for row in blk.u64(pi_tildes).reshape(-1, 16).tolist():
         h = hash64_words([p ^ r for p, r in zip(pi, row)])

@@ -81,13 +81,76 @@ def test_hash_kernels_match_plain(name, rows, cuda):
     assert torch.equal(mod.hash64(key, msg), mod.hash64_plain(key, msg))
 
 
-@pytest.mark.parametrize("rows", [0, 1, 4096])
+RING = sha256_cuda.CHAIN_RING
+
+
+@pytest.mark.parametrize("rows", [0, 1, 2, RING - 1, RING, RING + 1, 4096,
+                                  4133])
+@pytest.mark.parametrize("zero_key", [False, True])
 @pytest.mark.parametrize("name", sorted(HASHES))
-def test_chain_kernel_matches_plain(name, rows, cuda):
+def test_chain_kernel_matches_plain(name, zero_key, rows, cuda):
+    """Both chains; the SHA-256 one around its ring's size (its producer
+    lanes each own a slot) and past it."""
     rng = np.random.default_rng(10 + rows)
     mod, key = _mod(name)
+    if zero_key:
+        key = (0,) * len(list(key))
     pts, cs = _words(rng, (rows, 4, 4), cuda), _words(rng, (4, 4), cuda)
     assert torch.equal(mod.chain(key, pts, cs), mod.chain_plain(key, pts, cs))
+
+
+@pytest.mark.parametrize("rows", [1, 257, 4133])
+def test_sha256_kernels_take_rows_at_any_4_byte_offset(rows, cuda):
+    """hash64 and the chain read 16-byte rows when they are 16-byte aligned
+    and 4-byte words when not: both against their plain versions."""
+    rng = np.random.default_rng(300 + rows)
+    _, key = _mod("sha256")
+    flat = _words(rng, (16 * rows + 1,), cuda)
+    cs = _words(rng, (4, 4), cuda)
+    for m in (flat[:-1].view(rows, 4, 4), flat[1:].view(rows, 4, 4)):
+        assert torch.equal(sha256_cuda.hash64(key, m),
+                           sha256_cuda.hash64_plain(key, m))
+        assert torch.equal(sha256_cuda.chain(key, m, cs),
+                           sha256_cuda.chain_plain(key, m, cs))
+
+
+def test_sha256_chain_needs_no_scratch(cuda):
+    """The chain's ring is in shared memory: over 2^16 points it allocates
+    its 64-byte output and nothing that grows with N."""
+    rng = np.random.default_rng(16)
+    _, key = _mod("sha256")
+    pts, cs = _words(rng, (1 << 16, 4, 4), cuda), _words(rng, (4, 4), cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = sha256_cuda.chain(key, pts, cs)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 4)
+    assert torch.cuda.max_memory_allocated() - base < 1 << 20
+
+
+def test_sha256_reference_fold_eval_all_matches_plain(cuda):
+    """Vdpf.eval_all with the reference fold (the flat chain kernel over
+    all 2^10 points) against the plain fold, both parties."""
+    rng = np.random.default_rng(10)
+    mod, key = _mod("sha256")
+    g = groups.Uint(32)
+    d = Vdpf(10, g, PRG2, hashes=HASHES["sha256"], device=cuda)
+    s0s, cws, cs, ocw = d.gen_retry(rng, 777, _words(rng, (4,), cuda))
+
+    def h64(m):
+        return mod.hash64_plain(key, m.reshape(-1, 4, 4)).reshape(
+            *m.shape[:-2], 2, 4)
+
+    proofs = []
+    for party in (0, 1):
+        got = d.eval_all(party, s0s[party], cws, cs, ocw, fold="reference")
+        want = plain_vdpf.eval_all(
+            PRG2, lambda a, b: mod.xor_hash_plain(key, a, b), h64, g, 10,
+            party, s0s[party], cws, cs, ocw, "reference")
+        assert _same(got, want)
+        proofs.append(got[1])
+    assert torch.equal(*proofs)
 
 
 @pytest.mark.parametrize("name", sorted(HASHES))

@@ -7,8 +7,10 @@ crypto), on the CPU, where each wrapper takes its plain PyTorch version.
 """
 
 import hashlib
+import importlib.util
 import json
 import pathlib
+import re
 
 import jax
 import numpy as np
@@ -178,3 +180,23 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         blake3_cuda.hash64(range(4), torch.zeros((1, 4, 4),
                                                  dtype=torch.int32))
+
+
+def test_hash_variants_patch_each_choice(tmp_path):
+    """scripts/torch_hash_variants.py finds each design choice it varies
+    exactly once at the top of csrc/sha256.cu (the ring's size as
+    sha256_cuda.CHAIN_RING says)."""
+    repo = VEC.parents[2]
+    spec = importlib.util.spec_from_file_location(
+        "torch_hash_variants", repo / "scripts" / "torch_hash_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    csrc = repo / "fss_tpu_torch" / "csrc"
+    assert (f"constexpr int kRing = {sha256_cuda.CHAIN_RING};"
+            in (csrc / "sha256.cu").read_text())
+    for name, choices in variants.VARIANTS.items():
+        text = (variants.patch(csrc, name, choices, tmp_path)
+                / "sha256.cu").read_text()
+        for key, value in choices.items():
+            assert re.search(rf"^(using|constexpr \w+) {key} = "
+                             rf"{re.escape(value)};", text, re.M), (name, key)
