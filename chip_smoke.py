@@ -9,7 +9,10 @@ Phases, each printing one line (any failure exits non-zero):
   2. build: nvcc builds every kernel from csrc/ (registers and spills;
      the hash and AES kernels' SASS instruction counts, ALU and LDS ones
      apart, beside the model counts of their bounds, ``hash_alu`` and
-     ``AES_ALU``/``AES_LDS``);
+     ``AES_ALU``/``AES_LDS``; both chains' roles and one row of B-12,
+     split by pipe; one lane's dependent add,
+     LOP3, SHF, IMAD, SHFL, LDS and BLAKE3 G latencies,
+     ``alu_latencies``);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, byte-exact (tolerance 0: integer crypto), every tree kernel
      with the ChaCha PRG and with AES-128-MMO (``SAMPLE``-size batches;
@@ -20,7 +23,9 @@ Phases, each printing one line (any failure exits non-zero):
      in each of their five accumulator modes, and the DPF Gen's output CW
      for each of those five group kinds (wire and packed keys, 1, 16 and
      128 bits); the hash kernels also on the reference's primitive
-     vectors, and the flat proof chains on 4096 points;
+     vectors, the flat proof chains on 4096 points and around their
+     rings' sizes (rows 16-byte aligned and not), and B-12 on points below
+     2^32, 128-bit points and warps that mix them;
   4. golden: the reference's DPF, DCF, Half-Tree and VDPF vectors, ChaCha
      and AES, through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
      Vdpf("cuda"), the VDPF's pi~, proofs and reference-fold EvalAll
@@ -390,7 +395,8 @@ def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path,
 
 # The SHA-256 chain kernel's three roles, each alone in a kernel of its
 # own, so that the SASS counts show what each issues (the chain lane's are
-# one row's). Built from csrc/sha256.cu, never launched.
+# one row's); and one row of B-12. Built from csrc/sha256.cu, never
+# launched.
 CHAIN_ROLES_SRC = """#include "sha256.cu"
 __global__ void chain_lane_role_kernel(const uint32_t* cs, uint32_t* out,
                                        int64_t n,
@@ -417,21 +423,180 @@ __global__ void chain_helper_role_kernel(int64_t n,
   __shared__ uint64_t wbar, sbar[kPieces];
   chain_helper(n, ring, hb, &wbar, sbar, ChainAdd{key.one});
 }
+__global__ void xor_row_kernel(const uint4* ab, uint4* out,
+                               const __grid_constant__ fss::Sha256Key key) {
+  const uint4 qa = ab[0], qb = ab[1];
+  const uint32_t a[4] = {qa.x, qa.y, qa.z, qa.w};
+  const uint32_t b[4] = {qb.x, qb.y, qb.z, qb.w};
+  uint32_t o[16];
+  xor_hash_row(key, a, b, o);
+  for (int i = 0; i < 4; ++i)
+    out[i] = make_uint4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+}
+"""
+
+# The BLAKE3 chain kernel's two roles, the same way: the chain lanes (a
+# row's SASS in the loop) and a producer lane. Built from csrc/blake3.cu.
+BLAKE3_CHAIN_ROLES_SRC = """#include "blake3.cu"
+__global__ void chain_lanes_role_kernel(const uint32_t* cs, uint32_t* out,
+                                        int64_t n,
+                                        const __grid_constant__ ChainIv iv) {
+  __shared__ ChainSlot ring[kRing];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  __shared__ __align__(16) uint32_t hand[kShflWords ? 1 : 16];
+  chain_lanes(cs, out, n, iv, ring, full, empty, hand,
+              kChainLanes == 1 ? 0 : (int)threadIdx.x);
+}
+__global__ void chain_producer_role_kernel(const uint32_t* pts,
+                                           const uint32_t* cs, int64_t n) {
+  __shared__ ChainSlot ring[kRing];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  chain_producer<true>(pts, cs, n, ring[0], full, empty, 0);
+}
 """
 
 
 def chain_role_usage(nvcc: str, cuobjdump: pathlib.Path,
-                     csrc: pathlib.Path, out_dir: pathlib.Path) -> dict:
-    """SASS counts (with pipes) of the chain's roles, CHAIN_ROLES_SRC built
-    into a cubin beside the libraries."""
-    src = out_dir / "sha256_chain_roles.cu"
-    src.write_text(CHAIN_ROLES_SRC)
-    cubin = src.with_suffix(".cubin")
+                     csrc: pathlib.Path, out_dir: pathlib.Path,
+                     src: str = CHAIN_ROLES_SRC,
+                     name: str = "sha256_chain_roles") -> dict:
+    """SASS counts (with pipes) of a chain's roles, ``src`` built into a
+    cubin beside the libraries."""
+    path = out_dir / f"{name}.cu"
+    path.write_text(src)
+    cubin = path.with_suffix(".cubin")
     subprocess.run([nvcc, "-cubin", "-gencode",
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-I", str(csrc), "-o", str(cubin), str(src)],
+                    "-I", str(csrc), "-o", str(cubin), str(path)],
                    check=True, capture_output=True, text=True, timeout=600)
     return sass_usage(cuobjdump, cubin, pipes=True)
+
+
+# One lane's dependent chains, timed with clock64 on the card: a 32-bit
+# add (ADD: ptxas makes a chain of adds IMAD.IADDs or IADD3s as it likes),
+# LOP3 (a three-input majority), SHF (a funnel shift), IMAD, SHFL (a 4-lane
+# __shfl_sync, the chains' shuffle), LDS (a load whose address is the last
+# one's value: the shared-memory hand-over's round trip), and G (BLAKE3's
+# G mix, 12 dependent IADD3, LOP3 and SHF instructions: the flat chains'
+# path is made of such steps). Each kernel times kSteps x iters steps.
+LATENCY_SRC = r"""#include <cuda_runtime.h>
+#include <cstdint>
+constexpr int kSteps = 256;
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
+  return __funnelshift_r(x, x, n);
+}
+template <int kOp>
+__device__ __forceinline__ void step(uint32_t (&s)[4], uint32_t y,
+                                     uint32_t z) {
+  uint32_t& x = s[0];
+  if constexpr (kOp == 0) {
+    asm volatile("add.u32 %0, %0, %1;" : "+r"(x) : "r"(y));
+  } else if constexpr (kOp == 1) {
+    asm volatile("lop3.b32 %0, %0, %1, %2, 0xE8;" : "+r"(x) : "r"(y), "r"(z));
+  } else if constexpr (kOp == 2) {
+    asm volatile("shf.r.wrap.b32 %0, %0, %1, 13;" : "+r"(x) : "r"(y));
+  } else if constexpr (kOp == 3) {
+    asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(x) : "r"(y), "r"(z));
+  } else if constexpr (kOp == 4) {
+    x = __shfl_sync(0xFu, x, (threadIdx.x + 1) & 3, 4);
+  } else if constexpr (kOp == 5) {
+    asm volatile("ld.shared.u32 %0, [%0];" : "+r"(x));
+  } else {
+    uint32_t &a = s[0], &b = s[1], &c = s[2], &d = s[3];
+    a = a + b + y; d = rotr(d ^ a, 16); c = c + d; b = rotr(b ^ c, 12);
+    a = a + b + z; d = rotr(d ^ a, 8);  c = c + d; b = rotr(b ^ c, 7);
+  }
+}
+template <int kOp>
+__global__ void latency_kernel(long long* out, uint32_t seed, int iters) {
+  __shared__ uint32_t ring[16];
+  if (threadIdx.x >= 4) return;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 16; ++i)
+      ring[i] = (uint32_t)__cvta_generic_to_shared(ring + (i + 1) % 16);
+  __syncwarp(0xFu);
+  uint32_t ys[8], zs[8];
+  for (int i = 0; i < 8; ++i) ys[i] = seed * (2 * i + 3), zs[i] = seed ^ i;
+  uint32_t s[4] = {kOp == 5 ? (uint32_t)__cvta_generic_to_shared(ring)
+                            : seed + threadIdx.x,
+                   seed * 5, seed * 7, seed * 11};
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) step<kOp>(s, ys[j & 7], zs[j & 7]);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0)
+    out[2 * kOp] = t1 - t0, out[2 * kOp + 1] = s[0] ^ s[1] ^ s[2] ^ s[3];
+}
+extern "C" int fss_latency(long long* out, uint32_t seed, int iters,
+                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  latency_kernel<0><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<1><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<2><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<3><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<4><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<5><<<1, 32, 0, s>>>(out, seed, iters);
+  latency_kernel<6><<<1, 32, 0, s>>>(out, seed, iters);
+  return (int)cudaGetLastError();
+}
+"""
+# Each chain's name and the SASS mnemonics its steps are made of.
+LATENCY_OPS = {"ADD": ("IADD3", "IMAD"), "LOP3": ("LOP3",),
+               "SHF": ("SHF",), "IMAD": ("IMAD",), "SHFL": ("SHFL",),
+               "LDS": ("LDS",), "G": ("IADD3", "IMAD", "LOP3", "SHF", "PRMT")}
+
+
+def alu_latencies(nvcc: str, cuobjdump: pathlib.Path,
+                  out_dir: pathlib.Path, iters: int = 64) -> dict:
+    """Clocks a step of each of LATENCY_OPS's dependent chains on one lane
+    (LATENCY_SRC, built into a library beside the others), each kernel's
+    SASS count of the instructions its steps are made of ("sass": its loop
+    has 256 steps, G's 12 instructions each) and of all its instructions
+    ("sass_all"), and the clocks a step's instruction ("clocks_per_sass":
+    the steps' clocks over that count)."""
+    import ctypes
+    src = out_dir / "alu_latency.cu"
+    src.write_text(LATENCY_SRC)
+    so = src.with_suffix(".so")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(so), str(src)], check=True,
+                   capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(so)).fss_latency
+    fn.argtypes = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_void_p)
+    out = torch.zeros(2 * len(LATENCY_OPS), dtype=torch.int64,
+                      device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):  # the first call warms the instruction caches
+        if fn(out.data_ptr(), 12345, iters, stream):
+            raise RuntimeError("latency kernels failed to launch")
+    torch.cuda.synchronize()
+    clocks = out.cpu().tolist()[0::2]
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    names = list(LATENCY_OPS)
+    counts = {}
+    for chunk in text.split("Function : ")[1:]:
+        k = re.search(r"latency_kernelILi(\d)E", chunk.split(None, 1)[0])
+        if k:
+            name = names[int(k.group(1))]
+            ops = re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                chunk)
+            counts[name] = (sum(map(ops.count, LATENCY_OPS[name])),
+                            len(ops))
+    result = {}
+    for i, name in enumerate(names):
+        n, n_all = counts.get(name, (0, None))
+        result[name] = {"clocks_per_step": clocks[i] / (256 * iters),
+                        "sass": n, "sass_all": n_all,
+                        "clocks_per_sass": clocks[i] / (iters * n) if n
+                        else None}
+    return result
 
 
 def main() -> int:
@@ -507,12 +672,17 @@ def main() -> int:
                          "dcf_gen")}
     sass["sha256 chain roles"] = chain_role_usage(
         _build.nvcc(), cuobjdump, _build.CSRC, _build.BUILD_DIR)
+    sass["blake3 chain roles"] = chain_role_usage(
+        _build.nvcc(), cuobjdump, _build.CSRC, _build.BUILD_DIR,
+        BLAKE3_CHAIN_ROLES_SRC, "blake3_chain_roles")
+    latencies = alu_latencies(_build.nvcc(), cuobjdump, _build.BUILD_DIR)
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, sass_fields=["instructions", "alu", "lds", "alu_pipe",
                                 "imad", "viadd"],
         hash_alu={f"{h} {u}": hash_alu(h, u) for h in ("blake3", "sha256")
                   for u in ("xor_hash", "hash64")},
-        aes_block={"alu": AES_ALU, "lds": AES_LDS})
+        aes_block={"alu": AES_ALU, "lds": AES_LDS},
+        latency_clocks=latencies)
 
     # 3. kernels vs plain versions ----------------------------------------
     checks = []
@@ -787,6 +957,37 @@ def main() -> int:
         checks.append((f"{name} chain {CHAIN_ROWS}", same(
             vdpf_cuda.prove(hashes, pts, cs0),
             vdpf_cuda.prove_plain(hashes, pts, cs0))))
+        # The chain around its ring's size, and on rows at a 4-byte
+        # offset (the producers' 4-byte loads).
+        ring = (blake3_cuda if name == "blake3" else sha256_cuda).CHAIN_RING
+        flat = words((16 * (CHAIN_ROWS + 37) + 1,))
+        for rows in (0, 1, 2, ring - 1, ring, ring + 1, CHAIN_ROWS + 37):
+            for off in (0, 1):
+                p = flat[off:off + 16 * rows].view(rows, 4, 4)
+                checks.append((f"{name} chain {rows} offset {4 * off}", same(
+                    vdpf_cuda.prove(hashes, p, cs0),
+                    vdpf_cuda.prove_plain(hashes, p, cs0))))
+    # B-12 on points below 2^32 (the domain bit set and clear),
+    # 128-bit points, and warps that mix both; N = 1 and N off the CTA's
+    # multiple; rows at a 4-byte offset.
+    sha = vdpf_hashes["sha256"]
+    for rows in (1, 31, 130, B):
+        for points in ("small", "wide", "mixed"):
+            for off in (0, 1):
+                ab = words((2, 4 * rows + 1))
+                x, sd = (ab[i, off:off + 4 * rows].view(rows, 4)
+                         for i in (0, 1))
+                if points != "wide":
+                    sel = torch.ones(rows, dtype=torch.bool, device=dev)
+                    if points == "mixed":
+                        sel[::7] = False
+                    x[sel, 1:3] = 0
+                    x[sel, 3] &= 1
+                checks.append((f"sha256 xor_hash {points} rows={rows} "
+                               f"offset {4 * off}", same(
+                                   sha256_cuda.xor_hash(sha.key, x, sd),
+                                   sha256_cuda.xor_hash_plain(sha.key, x,
+                                                              sd))))
         for i, e in enumerate(prims[name]):
             h = type(hashes)(hexw(e["iv" if name == "blake3" else "key"]))
             x, sd = (blk.words(hexw(e[f]), dev)[None] for f in ("x", "s"))
@@ -1496,7 +1697,7 @@ def main() -> int:
         entry_timing(scheme, CH, M)
 
     # The VDPF: the SHA-256 fused eval (held against its plain version at
-    # this size too), the one-thread chains, the entry points, gen_batch's
+    # this size too), the flat chains, the entry points, gen_batch's
     # host draws, and EvalAll's parts at 24 bits.
     vd, vkey = vmain["blake3"]["d"], vmain["blake3"]["key"]
     vsd = vmain["sha256"]["d"]
@@ -1519,6 +1720,13 @@ def main() -> int:
     # ALU_LATENCY_CLOCKS at the max SM clock; and their clocks a row at it.
     chain_latency = {name: CHAIN_ROWS * hash_depth(name) * ALU_LATENCY_CLOCKS
                      / (max_mhz * 1e3) for name in vmain}
+    # The same bound at the measured latency: the clocks of an instruction
+    # of a dependent chain of BLAKE3 G mixes (IADD3, LOP3 and SHF, what
+    # both chains' paths are made of).
+    alu_clocks = latencies["G"]["clocks_per_step"] / 12
+    chain_latency_measured = {
+        name: CHAIN_ROWS * hash_depth(name) * alu_clocks / (max_mhz * 1e3)
+        for name in vmain}
     chain_rows = {name: by_name[f"{name}_chain"] for name in vmain}
     t0 = time.perf_counter()
     draws = np.random.default_rng(7).integers(0, 2**32, size=(vkeys, 2, 4))
@@ -1554,7 +1762,22 @@ def main() -> int:
         # The SHA-256 fold over the same 2^n rows (its cost does not depend
         # on their bytes): 2^n - 1 H' in n + 1 launches.
         "sha256_tree_fold_ms": cuda_ms(lambda: vdpf_cuda.fold(
-            vsd.hashes, epts, vea_k[vn_ea][2], "tree"), 3)}
+            vsd.hashes, epts, vea_k[vn_ea][2], "tree"), 3),
+        # B-12 over the same 2^n rows: the SHA-256 VDPF's pi~ there.
+        "sha256_pi_tilde_ms": cuda_ms(
+            lambda: sha256_cuda.xor_hash(VDPF_SHA_KEY, ex, es), 3)}
+    # B-12 on rows whose points use all four lanes, beside the main
+    # path's points below 2^32.
+    g_a = words((vkeys, 4))
+    b12 = {"points_below_2^32_ms": by_name["sha256_xor_hash"]["ms"],
+           "points_of_128_bits_ms": cuda_ms(
+               lambda: sha256_cuda.xor_hash(VDPF_SHA_KEY, g_a, h_b), 20)}
+    if not same(sha256_cuda.xor_hash(VDPF_SHA_KEY, g_a, h_b),
+                sha256_cuda.xor_hash_plain(VDPF_SHA_KEY, g_a, h_b)):
+        log("kernels_vs_plain", kernel="sha256_xor_hash 128-bit points",
+            max_abs_err="mismatch")
+        return 1
+    del g_a
     del es, et, ex, epts
     log("timing", scheme="vdpf", prg="ChaCha", card=kind,
         power_limit=smi.split(",")[-1].strip(),
@@ -1574,13 +1797,22 @@ def main() -> int:
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                       "depth": hash_depth(n),
                       "latency_bound_ms": chain_latency[n],
-                      "latency_bound_share": chain_latency[n] / r["ms"]}
+                      "latency_bound_share": chain_latency[n] / r["ms"],
+                      "measured_alu_clocks": alu_clocks,
+                      "latency_bound_measured_ms": chain_latency_measured[n],
+                      "latency_bound_measured_share":
+                          chain_latency_measured[n] / r["ms"]}
                   for n, r in chain_rows.items()},
         vdpf_eval_all_items_per_s={
             n: {k: (1 << k) / (ms / 1e3) for k, ms in t[2].items()}
             for n, t in vtimes.items()},
         vdpf_eval_all_ms={n: t[2] for n, t in vtimes.items()},
         vdpf_eval_all_parts={vn_ea: vea_parts},
+        sha256_xor_hash=b12,
+        # What B-12 feeds: the SHA-256 VDPF's Gen and its EvalAll at the
+        # largest domain.
+        sha256_gen_batch_ms=vtimes["sha256"][1],
+        sha256_eval_all_ms={vn_ea: vtimes["sha256"][2][vn_ea]},
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
 

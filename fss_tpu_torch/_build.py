@@ -43,7 +43,7 @@ SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
            "sha256", "vdpf_eval")
 HEADERS = ("chacha.cuh", "aes.cuh", "prg.cuh", "group.cuh", "dcf_acc.cuh",
            "dpf_walk.cuh", "subtree.cuh", "parties.cuh", "blake3.cuh",
-           "sha256.cuh")  # digested by every .so
+           "sha256.cuh", "ring.cuh")  # digested by every .so
 PRG_SOURCES = tuple(s for s in SOURCES if s not in ("blake3", "sha256"))
 KERNELS = (*PRG_SOURCES, *(f"{s}_aes" for s in PRG_SOURCES),
            "blake3_xor_hash", "blake3_hash64", "blake3_chain",

@@ -9,8 +9,14 @@
 // level. The chain replaces the JAX package's lax.scan of H'
 // (schemes/vdpf.py:prove): N dependent hashes.
 //
-// XorHash: one thread a row, sha256_compress (sha256.cuh); bound by ALU
-// issue (~2,400 instructions a row against 96 bytes).
+// XorHash (sha256_xor_hash_kernel, B-12): one thread a row, bound by ALU
+// issue (~2,400 instructions a row against 96 bytes), so only fewer
+// instructions a row make it faster. It starts from the key's midstate
+// (Sha256Key, as H' does), runs what the two compressions share once (the
+// rounds and schedule words the domain bit does not reach:
+// sha256.cuh:sha256_xor_hash_mid) and only then forks into lsb 0 and lsb
+// 1. K[t] is a compile-time constant (sha256_k); the adds follow XorAdd
+// and XorSchedAdd. vdpf_eval.cu keeps sha256_compress.
 //
 // H' (sha256_hash64_kernel): one thread a row, 128-thread CTAs, bound by
 // instruction issue (~3,040 SASS instructions a row against 96 bytes). The
@@ -55,11 +61,25 @@
 
 #include <cstdint>
 
+#include "ring.cuh"
 #include "sha256.cuh"
 
 namespace {
 
+using fss::aligned16;
+using fss::load4;
+using fss::load_row;
+using fss::mbar_arrive;
+using fss::mbar_init;
+using fss::mbar_test;
+using fss::mbar_wait;
+using fss::store4;
+
 // The design's choices; scripts/torch_hash_variants.py patches copies.
+constexpr bool kXorShared = true;    // B-12's compressions' prefix once
+using XorAdd = fss::FmaAdd;          // B-12's round adds (sha256.cuh)
+using XorSchedAdd = fss::PlainAdd;   // and its schedule's
+constexpr int kXorThreads = 128;     // B-12's CTA
 using H64Add = fss::FmaAdd;          // hash64's round adds (sha256.cuh)
 using H64SchedAdd = fss::PlainAdd;   // and its schedule's
 constexpr int kH64Threads = 128;     // sha256_hash64_kernel's CTA
@@ -72,45 +92,42 @@ constexpr int kHelperWarp = 1;       // the chain lane is warp 0's lane 0
 constexpr int kProducerWarp = 2;
 constexpr int kSelfWords = 8;        // W[16..] the chain lane computes itself
 
-struct Key {
-  uint32_t w[4];
-};
+// B-12: one thread a row; rows as 16-byte loads where a and b are 16-byte
+// aligned.
+__device__ __forceinline__ void xor_hash_row(const fss::Sha256Key& key,
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[4],
+                                             uint32_t (&o)[16]) {
+  fss::sha256_xor_hash_mid<kXorShared>(key, a, b, o, XorAdd{key.one},
+                                       XorSchedAdd{key.one});
+}
 
-__global__ void sha256_xor_hash_kernel(const uint32_t* __restrict__ a,
-                                       const uint32_t* __restrict__ b,
-                                       int4* __restrict__ out, int64_t n,
-                                       Key key_arg) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+template <bool kAligned>
+__global__ void __launch_bounds__(kXorThreads)
+    sha256_xor_hash_kernel(const uint32_t* __restrict__ a,
+                           const uint32_t* __restrict__ b,
+                           int4* __restrict__ out, int64_t n,
+                           const __grid_constant__ fss::Sha256Key key) {
+  const int64_t k = (int64_t)blockIdx.x * kXorThreads + threadIdx.x;
   if (k >= n) return;
-  const Key key = key_arg;
   uint32_t av[4], bv[4], o[16];
+  if constexpr (kAligned) {
+    const uint4 qa = __ldg(reinterpret_cast<const uint4*>(a) + k);
+    const uint4 qb = __ldg(reinterpret_cast<const uint4*>(b) + k);
+    av[0] = qa.x, av[1] = qa.y, av[2] = qa.z, av[3] = qa.w;
+    bv[0] = qb.x, bv[1] = qb.y, bv[2] = qb.z, bv[3] = qb.w;
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    av[i] = __ldg(a + 4 * k + i);
-    bv[i] = __ldg(b + 4 * k + i);
+    for (int i = 0; i < 4; ++i) {
+      av[i] = __ldg(a + 4 * k + i);
+      bv[i] = __ldg(b + 4 * k + i);
+    }
   }
-  fss::sha256_xor_hash(key.w, av, bv, o);
+  xor_hash_row(key, av, bv, o);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     out[4 * k + i] = make_int4((int)o[4 * i], (int)o[4 * i + 1],
                                (int)o[4 * i + 2], (int)o[4 * i + 3]);
-}
-
-// The 16 lanes of row p: four 16-byte loads, or 16 4-byte ones.
-template <bool kAligned>
-__device__ __forceinline__ void load_row(const uint32_t* __restrict__ p,
-                                         uint32_t (&m)[16]) {
-  if constexpr (kAligned) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      m[4 * i] = q.x, m[4 * i + 1] = q.y, m[4 * i + 2] = q.z,
-      m[4 * i + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = __ldg(p + i);
-  }
 }
 
 template <bool kAligned>
@@ -185,61 +202,6 @@ struct alignas(16) HelperBuf {
   uint32_t w[8];    // W[4..11], from the chain lane
   uint32_t kw[48];  // K[t] + W[t] of block 1, t = kOwn..63, from the helper
 };
-
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Arrive (release): this thread's earlier shared-memory reads and writes
-// happen before the phase completes.
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\t"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem(bar))
-      : "memory");
-}
-
-// Wait (acquire) until the phase of parity `parity` has completed; the
-// thread may be suspended until then.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred done;\n\t"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
-      "@!done bra WAIT;\n\t}" ::"r"(smem(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Whether the phase of parity `parity` has completed (acquire if so),
-// without waiting: the chain lane asks a few rounds ahead of the words it
-// needs, so the answer's latency hides behind them.
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void store4(uint32_t* dst, const uint32_t* src) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(src[0], src[1], src[2], src[3]);
-}
-
-__device__ __forceinline__ void load4(uint32_t* dst, const uint32_t* src) {
-  const uint4 q = *reinterpret_cast<const uint4*>(src);
-  dst[0] = q.x, dst[1] = q.y, dst[2] = q.z, dst[3] = q.w;
-}
 
 // Producer lane `lane` (< kRing): rows lane, lane + kRing, ... into slot
 // `lane`, each after the chain lane released the slot's last use.
@@ -440,14 +402,6 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   }
 }
 
-constexpr int kThreads = 128;
-
-unsigned blocks_for(int64_t n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
 }  // namespace
 
 // a, b: [n, 4] lanes; out: [n, 4, 4] (16 words a row).
@@ -455,10 +409,13 @@ extern "C" int fss_sha256_xor_hash(const void* a, const void* b, void* out,
                                    int64_t n, uint32_t k0, uint32_t k1,
                                    uint32_t k2, uint32_t k3, void* stream) {
   if (n <= 0) return 0;
-  sha256_xor_hash_kernel<<<blocks_for(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (int4*)out, n,
-      Key{{k0, k1, k2, k3}});
+  const fss::Sha256Key key = fss::sha256_key(k0, k1, k2, k3);
+  const unsigned blocks = (unsigned)((n + kXorThreads - 1) / kXorThreads);
+  auto kernel = aligned16(a) && aligned16(b)
+                    ? sha256_xor_hash_kernel<true>
+                    : sha256_xor_hash_kernel<false>;
+  kernel<<<blocks, kXorThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (int4*)out, n, key);
   return (int)cudaGetLastError();
 }
 

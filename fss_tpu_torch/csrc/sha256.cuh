@@ -17,14 +17,14 @@
 // show that IMADs still cost issue time: a two-term IMAD in place of a
 // three-term IADD3 pays only where ALU-pipe instructions are the many.
 //
-// Two forms live here. sha256_compress (B-12 sha256_xor_hash and
-// vdpf_eval.cu) keeps the first: plain adds, K in constant memory, the
-// schedule a 16-word window updated in place, every index a compile-time
-// constant so the window stays in registers. The H' kernels (sha256.cu)
-// use the second: sha256_k makes K[t] a compile-time constant, so K[t] +
-// W[t] folds wherever W[t] is padding; the key's work is done once on the
-// host (Sha256Key: the state after block 1's rounds 0..3, which read the
-// key alone, and the key's terms of W[16..19]); and an Add policy makes
+// Two forms live here. sha256_compress (vdpf_eval.cu's XorHash) keeps the
+// first: plain adds, K in constant memory, the schedule a 16-word window
+// updated in place, every index a compile-time constant so the window
+// stays in registers. The H' kernels and B-12 (sha256.cu) use the
+// second: sha256_k makes K[t] a compile-time constant, so K[t] + W[t]
+// folds wherever W[t] is padding; the key's work is done once on the host
+// (Sha256Key: the state after block 1's rounds 0..3, which read the key
+// alone, and the key's terms of W[16..19]); and an Add policy makes
 // the sums: IADD3s (PlainAdd), IMADs (FmaAdd: a * one + b, with one a
 // kernel argument equal to 1, which ptxas cannot fold back into an IADD3)
 // or both (MixedAdd). sha256_schedule computes a window word from the
@@ -365,6 +365,163 @@ __device__ __forceinline__ void sha256_hash64_mid(const Sha256Key& key,
   sha256_block2(st, x, op, sop);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = bswap32(st[i]);
+}
+
+// ---------------------------------------------------------------------------
+// The XorHash from the key's midstate (B-12, sha256.cu). The block is
+// W[0..3] the key, W[4..7] SetLsb(a, lsb), W[8..11] b, W[12..15] the
+// padding of 48 bytes. The domain bit is W[7]'s bit 24 (lane 3's LSB,
+// byte-swapped), so the two compressions share the key's rounds (the
+// midstate), rounds 4..6, round 7 up to its t1 (t1 of lsb 1 is t1 of lsb 0
+// plus 2^24), and W[16..21], which W[7] does not reach.
+
+__host__ __device__ constexpr uint32_t sha256_rotr_c(uint32_t x, int n) {
+  return (x >> n) | (x << (32 - n));
+}
+
+__host__ __device__ constexpr uint32_t sha256_sigma0_c(uint32_t x) {
+  return sha256_rotr_c(x, 7) ^ sha256_rotr_c(x, 18) ^ (x >> 3);
+}
+
+__host__ __device__ constexpr uint32_t sha256_sigma1_c(uint32_t x) {
+  return sha256_rotr_c(x, 17) ^ sha256_rotr_c(x, 19) ^ (x >> 10);
+}
+
+constexpr uint32_t kSha256DomainBit = 0x01000000u;  // W[7] of lsb 1
+
+// Whether the XorHash's word i (< 16) is a compile-time constant: the
+// padding.
+__host__ __device__ constexpr bool xor_const_word(int i) { return i >= 12; }
+
+// The value of a constant word.
+__host__ __device__ constexpr uint32_t xor_const_value(int i) {
+  return i == 12 ? 0x80000000u : i == 15 ? 384u : 0u;
+}
+
+// The constant terms of W[t] (t >= 16), summed.
+__host__ __device__ constexpr uint32_t xor_const_terms(int t) {
+  uint32_t s = 0;
+  if (t - 16 < 16 && xor_const_word(t - 16)) s += xor_const_value(t - 16);
+  if (t - 7 < 16 && xor_const_word(t - 7)) s += xor_const_value(t - 7);
+  if (t - 15 < 16 && xor_const_word(t - 15))
+    s += sha256_sigma0_c(xor_const_value(t - 15));
+  if (t - 2 < 16 && xor_const_word(t - 2))
+    s += sha256_sigma1_c(xor_const_value(t - 2));
+  return s;
+}
+
+// W[t] (t >= 16) into the window: the row words' terms from w, the key's
+// from key.kc, the constants' folded.
+template <class Add>
+__device__ __forceinline__ void xor_schedule(uint32_t (&w)[16], int t,
+                                             const Sha256Key& key, Add op) {
+  const uint32_t c = xor_const_terms(t);
+  const bool has_key = t < 20;
+  const uint32_t extra = has_key ? (c ? key.kc[t - 16] + c : key.kc[t - 16])
+                                 : c;
+  sha256_schedule(
+      w, t,
+      [](int i) { return i < 4 || (i < 16 && xor_const_word(i)); },
+      has_key || c != 0u, extra, op);
+}
+
+// K[t] + W[t] for t < 16.
+template <class Add>
+__device__ __forceinline__ uint32_t xor_kw(const uint32_t (&w)[16], int t,
+                                           Add op) {
+  return xor_const_word(t) ? sha256_k(t) + xor_const_value(t)
+                           : op.add(w[t & 15], sha256_k(t));
+}
+
+// Rounds t0..63 on v, W[t] in the window from t0 on (W[16..t0) already in
+// it).
+template <class Add, class SAdd>
+__device__ __forceinline__ void xor_rounds(uint32_t (&v)[8],
+                                           uint32_t (&w)[16], int t0,
+                                           const Sha256Key& key, Add op,
+                                           SAdd sop) {
+#pragma unroll
+  for (int t = 4; t < 64; ++t) {
+    if (t < t0) continue;
+    if (t >= 16) xor_schedule(w, t, key, sop);
+    sha256_round(v, t < 16 ? xor_kw(w, t, op)
+                           : op.add(w[t & 15], sha256_k(t)), op);
+  }
+}
+
+// H(a, b) from the key's launch constants: out[0..7] of lsb 0, out[8..15]
+// of lsb 1 (lanes, little-endian). kShared runs the two compressions'
+// common prefix once; without it each runs from the midstate.
+template <bool kShared, class Add, class SAdd>
+__device__ __forceinline__ void sha256_xor_hash_mid(const Sha256Key& key,
+                                                    const uint32_t (&a)[4],
+                                                    const uint32_t (&b)[4],
+                                                    uint32_t (&out)[16],
+                                                    Add op, SAdd sop) {
+  uint32_t w[16] = {};  // W[0..3], the key's, only through kc
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[4 + i] = bswap32(i == 3 ? a[3] & ~1u : a[i]);
+    w[8 + i] = bswap32(b[i]);
+  }
+  uint32_t st[2][8];
+  if constexpr (kShared) {
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = key.mid[i];
+#pragma unroll
+    for (int t = 4; t < 7; ++t) sha256_round(v, xor_kw(w, t, op), op);
+    // Round 7 up to t1, then each compression's t1.
+    const uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
+    const uint32_t s1 = sha256_rotr(e, 6) ^ sha256_rotr(e, 11) ^
+                        sha256_rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t s0 = sha256_rotr(v[0], 2) ^ sha256_rotr(v[0], 13) ^
+                        sha256_rotr(v[0], 22);
+    const uint32_t maj = (v[0] & v[1]) ^ (v[0] & v[2]) ^ (v[1] & v[2]);
+    const uint32_t t1 =
+        op.add(op.add3(h, xor_kw(w, 7, op), ch), s1);
+    // W[16..21] and K[t] + W[t] for t = 8..21: shared.
+#pragma unroll
+    for (int t = 16; t < 22; ++t) xor_schedule(w, t, key, sop);
+    uint32_t kw[14];
+#pragma unroll
+    for (int t = 8; t < 22; ++t)
+      kw[t - 8] = t < 16 ? xor_kw(w, t, op) : op.add(w[t & 15], sha256_k(t));
+#pragma unroll
+    for (int lsb = 0; lsb < 2; ++lsb) {
+      const uint32_t t1l = lsb ? t1 + kSha256DomainBit : t1;
+      uint32_t vl[8] = {op.add3(t1l, maj, s0), v[0], v[1], v[2],
+                        op.add(v[3], t1l), e, f, g};
+      uint32_t wl[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) wl[i] = w[i];
+      if (lsb) wl[7] = w[7] | kSha256DomainBit;
+#pragma unroll
+      for (int t = 8; t < 22; ++t) sha256_round(vl, kw[t - 8], op);
+      xor_rounds(vl, wl, 22, key, op, sop);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) st[lsb][i] = vl[i];
+    }
+  } else {
+#pragma unroll
+    for (int lsb = 0; lsb < 2; ++lsb) {
+      uint32_t vl[8], wl[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vl[i] = key.mid[i];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) wl[i] = w[i];
+      if (lsb) wl[7] = w[7] | kSha256DomainBit;
+      xor_rounds(vl, wl, 4, key, op, sop);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) st[lsb][i] = vl[i];
+    }
+  }
+#pragma unroll
+  for (int lsb = 0; lsb < 2; ++lsb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      out[8 * lsb + i] = bswap32(op.add(st[lsb][i], sha256_h0(i)));
 }
 
 }  // namespace fss

@@ -4,9 +4,11 @@
 Counterpart of ``fss_tpu.ops.blake3_pallas``. The kernels replace
 ``blake3_pallas.xor_hash_planes`` (H, :func:`xor_hash`) and
 ``blake3_pallas.hash64_batch`` (H', :func:`hash64`); :func:`chain` runs the
-VDPF's flat proof fold, ``schemes/vdpf.py:prove``, in one thread (the JAX
-package's ``lax.scan``). The source file says what bounds each kernel on
-the H100 and what its design does about that.
+VDPF's flat proof fold, ``schemes/vdpf.py:prove`` (the JAX package's
+``lax.scan``), in one CTA: four lanes of one warp share each compression,
+fed by a producer warp through a ring of ``CHAIN_RING`` slots in shared
+memory (``csrc/ring.cuh``). The source file says what bounds each kernel
+on the H100 and what its design does about that.
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
@@ -34,6 +36,7 @@ _XOR_ARGS = (_build.P, _build.P, _build.P, _build.I64, *(_build.U32,) * 8,
 _H64_ARGS = (_build.P, _build.P, _build.I64, *(_build.U32,) * 8, _build.P)
 _CHAIN_ARGS = (_build.P, _build.P, _build.P, _build.I64,
                *(_build.U32,) * 8, _build.P)
+CHAIN_RING = 8  # the chain kernel's ring slots (kRing in csrc/blake3.cu)
 
 
 def check_xor_hash(a, b) -> torch.device:
@@ -125,7 +128,7 @@ def chain(iv, pts: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
 def chain_plain(iv, pts, cs) -> torch.Tensor:
     """Plain version of :func:`chain`, on any device: the same fold on the
     host in Python ints (``hash/blake3.py:compress_reference``), one point
-    at a time, as the kernel's one thread does it."""
+    at a time."""
     check_chain(pts, cs)
     iv = blk.key_words(iv, 8, "iv")
     return _vdpf.prove_scalar(

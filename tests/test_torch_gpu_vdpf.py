@@ -99,6 +99,59 @@ def test_chain_kernel_matches_plain(name, zero_key, rows, cuda):
     assert torch.equal(mod.chain(key, pts, cs), mod.chain_plain(key, pts, cs))
 
 
+B3_RING = blake3_cuda.CHAIN_RING
+
+
+@pytest.mark.parametrize("rows", [0, 1, 2, B3_RING - 1, B3_RING,
+                                  B3_RING + 1, 4096, 4133])
+def test_blake3_chain_around_its_ring(rows, cuda):
+    """The BLAKE3 chain around its own ring's size (a producer lane a
+    slot) and past it."""
+    rng = np.random.default_rng(40 + rows)
+    _, iv = _mod("blake3")
+    pts, cs = _words(rng, (rows, 4, 4), cuda), _words(rng, (4, 4), cuda)
+    assert torch.equal(blake3_cuda.chain(iv, pts, cs),
+                       blake3_cuda.chain_plain(iv, pts, cs))
+
+
+@pytest.mark.parametrize("rows", [1, B3_RING + 1, 4133])
+def test_blake3_chain_takes_rows_at_any_4_byte_offset(rows, cuda):
+    """The BLAKE3 producers read 16-byte rows when they are 16-byte
+    aligned and 4-byte words when not."""
+    rng = np.random.default_rng(60 + rows)
+    _, iv = _mod("blake3")
+    flat = _words(rng, (16 * rows + 1,), cuda)
+    cs = _words(rng, (4, 4), cuda)
+    for m in (flat[:-1].view(rows, 4, 4), flat[1:].view(rows, 4, 4)):
+        assert torch.equal(blake3_cuda.chain(iv, m, cs),
+                           blake3_cuda.chain_plain(iv, m, cs))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("lsb", ["clear", "set"])
+@pytest.mark.parametrize("points", ["below_2_32", "wide", "mixed"])
+@pytest.mark.parametrize("rows", [1, 130, 4133])
+def test_sha256_xor_hash_paths(rows, points, lsb, offset, cuda):
+    """B-12 on points below 2^32 (lanes 1-3 zero but for the domain bit,
+    as on every main path), 128-bit points, and warps that mix both; lane
+    3's LSB set or clear; N = 1 and N off the CTA's multiple; rows 16-byte
+    aligned or at a 4-byte offset."""
+    rng = np.random.default_rng(rows + 7 * offset)
+    _, key = _mod("sha256")
+    ab = _words(rng, (2, 4 * rows + 1), cuda)
+    a, b = (ab[i, offset:offset + 4 * rows].view(rows, 4) for i in (0, 1))
+    if lsb == "set":
+        a[:, 3] |= 1
+    else:
+        a[:, 3] &= ~1
+    if points != "wide":
+        small = a[::3] if points == "mixed" else a
+        small[:, 1:3] = 0
+        small[:, 3] &= 1
+    assert torch.equal(sha256_cuda.xor_hash(key, a, b),
+                       sha256_cuda.xor_hash_plain(key, a, b))
+
+
 @pytest.mark.parametrize("rows", [1, 257, 4133])
 def test_sha256_kernels_take_rows_at_any_4_byte_offset(rows, cuda):
     """hash64 and the chain read 16-byte rows when they are 16-byte aligned

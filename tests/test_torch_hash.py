@@ -116,13 +116,22 @@ def test_primitives_golden(name):
         assert _np(out).tobytes() == bytes.fromhex(e["xor_hash"])
 
 
-@pytest.mark.parametrize("name", sorted(PAIRS))
-def test_xor_hash_matches_pallas_kernel(name, rng):
-    """B-10 (blake3_pallas) and B-12 (sha256_pallas) XorHash, 300 rows."""
+@pytest.mark.parametrize(
+    "name,points", [(n, "random") for n in sorted(PAIRS)]
+    + [("sha256", "below_2_32"), ("sha256", "mixed")],
+    ids=sorted(PAIRS) + ["sha256-below_2_32", "sha256-mixed"])
+def test_xor_hash_matches_pallas_kernel(name, points, rng):
+    """B-10 (blake3_pallas) and B-12 (sha256_pallas) XorHash, 300 rows of
+    random points; B-12 also on points below 2^32 (lanes 1-3 zero but for
+    the domain bit, set and clear), alone or every third row."""
     nkey = PAIRS[name][2]
     key = tuple(int(v) for v in rng.integers(0, 2**32, size=nkey))
     a = rng.integers(0, 2**32, size=(300, 4), dtype=np.uint32)
     b = rng.integers(0, 2**32, size=(300, 4), dtype=np.uint32)
+    if points != "random":
+        small = a[::3] if points == "mixed" else a
+        small[:, 1:3] = 0
+        small[:, 3] &= 1
     kern = {"blake3": blake3_pallas, "sha256": sha256_pallas}[name]
     want = kern.xor_hash_batch(a, b, key, block_rows=8, interpret=True)
     wrapper = {"blake3": blake3_cuda, "sha256": sha256_cuda}[name]
@@ -184,8 +193,8 @@ def test_wrappers_validate_inputs():
 
 def test_hash_variants_patch_each_choice(tmp_path):
     """scripts/torch_hash_variants.py finds each design choice it varies
-    exactly once at the top of csrc/sha256.cu (the ring's size as
-    sha256_cuda.CHAIN_RING says)."""
+    exactly once at the top of the source it patches, csrc/blake3.cu or
+    csrc/sha256.cu (each ring's size as its wrapper's CHAIN_RING says)."""
     repo = VEC.parents[2]
     spec = importlib.util.spec_from_file_location(
         "torch_hash_variants", repo / "scripts" / "torch_hash_variants.py")
@@ -194,9 +203,13 @@ def test_hash_variants_patch_each_choice(tmp_path):
     csrc = repo / "fss_tpu_torch" / "csrc"
     assert (f"constexpr int kRing = {sha256_cuda.CHAIN_RING};"
             in (csrc / "sha256.cu").read_text())
+    assert (f"constexpr int kRing = {blake3_cuda.CHAIN_RING};"
+            in (csrc / "blake3.cu").read_text())
+    assert {variants.source_of(name) for name in variants.VARIANTS} == {
+        "blake3", "sha256"}
     for name, choices in variants.VARIANTS.items():
         text = (variants.patch(csrc, name, choices, tmp_path)
-                / "sha256.cu").read_text()
+                / f"{variants.source_of(name)}.cu").read_text()
         for key, value in choices.items():
             assert re.search(rf"^(using|constexpr \w+) {key} = "
                              rf"{re.escape(value)};", text, re.M), (name, key)
