@@ -20,9 +20,11 @@ Phases, each printing one line (any failure exits non-zero):
      DPF, DCF and Half-Tree EvalAll kernels for every group kind on both
      sides of their plan's boundary, ``CHECK_PLANS``, and the DPF's seeds
      epilogue; the VDPF EvalAll at several domains); the DCF kernels
-     in each of their five accumulator modes, and the DPF Gen's output CW
-     for each of those five group kinds (wire and packed keys, 1, 16 and
-     128 bits); the hash kernels also on the reference's primitive
+     in each of their five accumulator modes, and the DPF and Half-Tree
+     Gens' output CW for each of those five group kinds (the DPF's on wire
+     and packed keys; 1, 16 and 128 bits); the Half-Tree Eval on wire
+     rows, one broadcast key, rows at a 4-byte offset and x as 4 lanes;
+     the hash kernels also on the reference's primitive
      vectors, the flat proof chains on 4096 points and around their
      rings' sizes (rows 16-byte aligned and not), and B-12 on points below
      2^32, 128-bit points and warps that mix them;
@@ -53,7 +55,8 @@ Phases, each printing one line (any failure exits non-zero):
      (mul=2), the DCF (mul=4, lt), the Half-Tree DPF (mul=1) and the VDPF
      (mul=2) with SHA-256 keyed by the bench's key;
   6. timing: CUDA-event times of each kernel and of the entry points at
-     the main-path shapes, beside the bound of the same work; each timed
+     the main-path shapes, beside the bound of the same work, and the
+     Eval kernels on one broadcast key beside their wire rows; each timed
      kernel is held against its plain version on the same inputs; each
      EvalAll call's launches and their times.
 
@@ -373,8 +376,9 @@ def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path,
                pipes: bool = False) -> dict:
     """``cuobjdump -sass`` of a library (or cubin) -> {kernel:
     [instructions, ALU instructions (SASS_ALU), shared-memory loads (LDS)]},
-    and with ``pipes`` the ALU ones split by pipe as well: [..., ALU-pipe
-    (SASS_ALU_PIPE), IMAD, VIADD]. A thread's count for a kernel with no
+    and with ``pipes`` the ALU ones split by pipe as well, and the global
+    loads: [..., ALU-pipe (SASS_ALU_PIPE), IMAD, VIADD, LDG]. A thread's
+    count for a kernel with no
     loop, a row's (the loop body, plus a little) for the chains' roles, a
     level's (plus a little) for the walks."""
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
@@ -389,7 +393,8 @@ def sass_usage(cuobjdump: pathlib.Path, lib: pathlib.Path,
             len(ops), sum(op in SASS_ALU for op in ops),
             sum(op == "LDS" for op in ops)] + ([
                 sum(op in SASS_ALU_PIPE for op in ops),
-                ops.count("IMAD"), ops.count("VIADD")] if pipes else [])
+                ops.count("IMAD"), ops.count("VIADD"),
+                ops.count("LDG")] if pipes else [])
     return usage
 
 
@@ -665,7 +670,7 @@ def main() -> int:
     usage = {name: ptxas_usage(text) for name, text in reports.items()}
     cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     sass = {name: sass_usage(cuobjdump, _build.library(name),
-                             pipes=name in ("blake3", "sha256"))
+                             pipes=name in ("blake3", "sha256", "ht_eval"))
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
                          "dcf_eval", "ht_eval", "dpf_eval_all",
                          "dcf_eval_all", "ht_eval_all", "dpf_gen",
@@ -678,7 +683,7 @@ def main() -> int:
     latencies = alu_latencies(_build.nvcc(), cuobjdump, _build.BUILD_DIR)
     log("build", seconds=round(build_s, 3), nvcc=_build.nvcc(), ptxas=usage,
         sass=sass, sass_fields=["instructions", "alu", "lds", "alu_pipe",
-                                "imad", "viadd"],
+                                "imad", "viadd", "ldg"],
         hash_alu={f"{h} {u}": hash_alu(h, u) for h in ("blake3", "sha256")
                   for u in ("xor_hash", "hash64")},
         aes_block={"alu": AES_ALU, "lds": AES_LDS},
@@ -699,6 +704,12 @@ def main() -> int:
 
     def kernel_inputs(lanes, n):
         return lanes if n > 32 else lanes[:, 0].contiguous()
+
+    def _x4(xs):
+        """[B] x words -> [B, 4] lanes."""
+        out = torch.zeros((xs.shape[0], 4), dtype=torch.int32, device=dev)
+        out[:, 0] = xs
+        return out
 
     # One group per accumulator mode of the DCF kernels.
     dcf_groups = {"xor": groups.Bytes(), "wrap": groups.Uint(32),
@@ -859,15 +870,27 @@ def main() -> int:
             xs = kernel_inputs(xs, n)
             wire, _ = ht_cuda.gen_batch(P[1], groups.Uint(32), n, hash_key,
                                         s0s, kernel_inputs(alphas, n), betas)
+            # Wire rows (AES: the TMA ring), one broadcast key, wire rows
+            # at a 4-byte offset (the wrapper's aligned copy), and x as 4
+            # lanes at 16 bits.
+            flat = torch.empty(wire.numel() + 1, dtype=torch.int32,
+                               device=dev)
+            offset = flat[1:].view(wire.shape)
+            offset.copy_(wire)
             cases = {
-                "wire": (s0s[:, 1].contiguous(), wire),
-                "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous()),
+                "wire": (s0s[:, 1].contiguous(), wire, xs),
+                "broadcast": (s0s[0, 1].contiguous(), wire[0].contiguous(),
+                              xs),
+                "offset": (s0s[:, 1].contiguous(), offset, xs),
             }
-            for label, (s0, cws) in cases.items():
+            if n <= 32:
+                cases["x lanes=4"] = (s0s[:, 1].contiguous(), wire,
+                                      _x4(xs))
+            for label, (s0, cws, xs_) in cases.items():
                 for party in (0, 1):
-                    got = ht_cuda.eval_packed(s0, cws, xs, n, party, P[1],
+                    got = ht_cuda.eval_packed(s0, cws, xs_, n, party, P[1],
                                               hash_key)
-                    want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party,
+                    want = ht_cuda.eval_packed_plain(s0, cws, xs_, n, party,
                                                      P[1], hash_key)
                     checks.append((f"{tag} ht_eval n={n} {label} "
                                    f"party={party}", same(got, want)))
@@ -881,6 +904,22 @@ def main() -> int:
                                                 hash_key)
                 checks.append((f"{tag} ht_gen n={n} alpha lanes={width}",
                                same(got, want)))
+        # The output CW in the Gen kernel, for every group kind: against
+        # the output CW of the plain Gen's leaves (gen_packed_plain with
+        # betas, without a plain Gen a group).
+        for n in (1, 16, 128):
+            s0s, betas = words((B, 2, 4)), words((B, 4))
+            lanes = domain(words((B, 4)), n)
+            for width in ((1, 4) if n <= 32 else (4,)):
+                alphas = lanes if width == 4 else lanes[:, 0].contiguous()
+                cws, leaf0, leaf1 = ht_cuda.gen_packed_plain(
+                    s0s, alphas, n, P[1], hash_key)
+                for g in dcf_groups.values():
+                    got = ht_cuda.gen_packed(s0s, alphas, n, P[1], hash_key,
+                                             betas=betas, group=g)
+                    want = (cws, plain_ht.output_cw(g, leaf0, leaf1, betas))
+                    checks.append((f"{tag} ht_gen output cw {g.name} n={n} "
+                                   f"alpha lanes={width}", same(got, want)))
         # The fused VDPF eval, Gen (DPF Gen levels into VDPF rows + H), and
         # the DPF Gen's VDPF rows alone.
         for n in (16, wide):
@@ -1460,6 +1499,7 @@ def main() -> int:
         hev = (H["s0s"][:, 0].contiguous(), H["cws"], H["xs"], MAIN_BITS, 0,
                P[1], hash_key)
         hgv = (H["s0s"], H["alphas"], MAIN_BITS, P[1], hash_key)
+        hgkw = dict(betas=H["betas"], group=H["g"])
         vk = V["key"]
         vev = (vk[0][:, 0].contiguous(), vk[1], V["xs"], MAIN_BITS, 0, P[2],
                V["d"].hashes)
@@ -1535,12 +1575,12 @@ def main() -> int:
             ("ht_eval", lambda: ht_cuda.eval_packed(*hev),
              lambda: ht_cuda.eval_packed_plain(*hev), nh * MAIN_BITS, 0,
              nh * (16 + (MAIN_BITS - 1) * 16 + 20 + 4 + 16 + 4)),
-            # seeds 32 B and alpha 4 B in; n rows of 32 B and two leaves
-            # out. Two blocks a level and four at the last.
-            ("ht_gen", lambda: ht_cuda.gen_packed(*hgv),
-             lambda: ht_cuda.gen_packed_plain(*hgv),
+            # seeds 32 B, alpha 4 B and beta 16 B in; n rows of 32 B and the
+            # output CW 16 B out. Two blocks a level and four at the last.
+            ("ht_gen", lambda: ht_cuda.gen_packed(*hgv, **hgkw),
+             lambda: ht_cuda.gen_packed_plain(*hgv, **hgkw),
              nh * (2 * (MAIN_BITS - 1) + 4), 0,
-             nh * (32 + 4 + MAIN_BITS * 32 + 2 * 16)),
+             nh * (32 + 4 + 16 + MAIN_BITS * 32 + 16)),
             # the root 16 B, 20 B of key row a level and the output CW
             # 16 B in; a 16 B share a leaf out. 2^(n-1) - 1 doubling blocks
             # and 2^n conversion blocks (the CTAs' walks to their subtree
@@ -1652,7 +1692,10 @@ def main() -> int:
 
     def entry_timing(scheme, P, M, extra=None):
         """End-to-end times of one path's entry points at its shapes, with
-        the kernels' times beside them."""
+        the kernels' times beside them, and the Eval kernel's time on one
+        broadcast key (the same seeds and x; every lane reads the same key
+        rows, so the gap to the wire rows' time is what their loads cost),
+        held against its plain version. Returns whether that held."""
         d, nk = M["d"], M["nkeys"]
         s0 = M["s0s"][:, 0].contiguous()
         if scheme == "half_tree":
@@ -1666,6 +1709,17 @@ def main() -> int:
             M["s0s"], M["alphas"], M["betas"], layout="packed"),
                                 10) if scheme == "dpf" else None
         eval_ms = cuda_ms(ev, 10)
+        kfn, pfn, prg_args = {
+            "dpf": (dpf_cuda.eval_packed, dpf_cuda.eval_packed_plain,
+                    (P[2],)),
+            "dcf": (dcf_cuda.eval_packed, dcf_cuda.eval_packed_plain,
+                    (P[4], "wrap")),
+            "half_tree": (ht_cuda.eval_packed, ht_cuda.eval_packed_plain,
+                          (P[1], hash_key))}[scheme]
+        bargs = (s0, M["cws"][0].contiguous(), M["xs"], MAIN_BITS, 0,
+                 *prg_args)
+        bcast_ok = same(kfn(*bargs), pfn(*bargs))
+        bcast_ms = cuda_ms(lambda: kfn(*bargs), 20)
         eas = M["ea"]
         ea_call = {n: (lambda n=n: eas[n].eval_all(
             0, M["ea_seeds"][0], *(M["ea_key"][n] if scheme == "half_tree"
@@ -1682,6 +1736,7 @@ def main() -> int:
             gen_bound_ms=by_name[f"{short}_gen{tag}"]["bound_ms"],
             eval_per_s=nk / (eval_ms / 1e3), eval_ms=eval_ms,
             eval_kernel_ms=by_name[f"{short}_eval{tag}"]["ms"],
+            eval_broadcast_kernel_ms=bcast_ms, eval_broadcast_ok=bcast_ok,
             eval_bound_ms=by_name[f"{short}_eval{tag}"]["bound_ms"],
             eval_all_items_per_s={n: (1 << n) / (ms / 1e3)
                                   for n, ms in ea_ms.items()},
@@ -1692,9 +1747,11 @@ def main() -> int:
             main_path_s=M["main_s"], **(extra or {}),
             clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                               "temperature.gpu"))
+        return bcast_ok
 
     for scheme, M in (("dpf", S), ("dcf", DS), ("half_tree", HS)):
-        entry_timing(scheme, CH, M)
+        if not entry_timing(scheme, CH, M):
+            return 1
 
     # The VDPF: the SHA-256 fused eval (held against its plain version at
     # this size too), the flat chains, the entry points, gen_batch's
@@ -1818,7 +1875,8 @@ def main() -> int:
 
     # The AES block's entry points.
     for scheme in ("dpf", "dcf", "half_tree"):
-        entry_timing(scheme, AES, aes_main[scheme])
+        if not entry_timing(scheme, AES, aes_main[scheme]):
+            return 1
     av = aes_main["vdpf"]
     at = vdpf_times(av)
     log("timing", scheme="vdpf", prg="AesMmo", hash="sha256", card=kind,

@@ -14,6 +14,8 @@ the same on both carriers.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -40,6 +42,19 @@ def words(vals, device=None) -> torch.Tensor:
         t = vals if vals.dtype == torch.int32 else i32(vals.to(torch.int64))
         return t.to(device) if device is not None else t
     arr = np.asarray(vals)
+    if (arr.ndim and arr.dtype in (np.int64, np.uint64)
+            and arr.dtype.byteorder in "=<" and sys.byteorder == "little"):
+        # The low 32-bit word of each value is the even int32 of its
+        # little-endian 8 bytes: one strided pass into the staging tensor
+        # (pinned for a CUDA device, then one copy that does not block the
+        # host; the caching host allocator keeps the pinned buffer until
+        # that copy has run).
+        low = np.ascontiguousarray(arr).view(np.int32)[..., ::2]
+        dev = torch.device(device) if device is not None else None
+        pinned = dev is not None and dev.type == "cuda"
+        out = torch.empty(low.shape, dtype=torch.int32, pin_memory=pinned)
+        out.numpy()[...] = low
+        return out.to(dev, non_blocking=True) if pinned else out.to(device)
     if arr.dtype not in (np.uint32, np.int32):
         arr = (arr.astype(np.uint64) & np.uint64(MASK32)).astype(np.uint32)
     arr = np.ascontiguousarray(arr).view(np.int32)

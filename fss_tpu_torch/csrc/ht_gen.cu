@@ -18,8 +18,14 @@
 //
 // The kernel writes whole wire rows [B, n, 8]: rows 0..n-2 hold the CW in
 // words 0-3, row n-1 holds SetLsb(HCW, LCW_0) in words 0-3 and LCW_1 in
-// word 4, every other word 0. The group-typed output CW is torch glue on the
-// two leaves [B, 4] (ops/ht_cuda.py:gen_batch), as on the TPU.
+// word 4, every other word 0. Given betas and the group it ends with the
+// group-typed output CW [B, 4], as dpf_gen.cu does (the group kind a
+// template parameter, group.cuh): +-(beta - s0 + s1) with s0, s1 the two
+// leaves with their clamped bits clear, negated when leaf 1's low bit (t1)
+// is set, as schemes/half_tree_dpf.py:output_cw computes it, so
+// HalfTreeDpf.gen_batch is one launch (the JAX package runs it as XLA glue
+// after its kernel, fss_tpu/ops/ht_pallas.py:gen_batch). Without betas it
+// writes the two leaves [B, 4] instead.
 //
 // Bound on the H100 with ChaCha: 32-bit ALU instruction dispatch. 2 (n-1) + 4
 // ChaCha blocks of 960 ops a key against 32 bytes a row written; at 2^20 keys x
@@ -31,6 +37,7 @@
 
 #include <cuda_runtime.h>
 
+#include "group.cuh"
 #include "prg.cuh"
 
 namespace {
@@ -53,14 +60,18 @@ __device__ __forceinline__ void ccr_hash(const Prg& prg,
   prg.expand1(out, out);
 }
 
-template <class Prg>
+template <int M, class Prg>
 __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
                               const uint32_t* __restrict__ alphas,
-                              int64_t a_ks, int4* __restrict__ cws,
+                              int64_t a_ks,
+                              const uint32_t* __restrict__ betas,
+                              int4* __restrict__ cws,
                               int4* __restrict__ leaf0,
-                              int4* __restrict__ leaf1, int64_t batch,
+                              int4* __restrict__ leaf1,
+                              int4* __restrict__ ocw, int64_t batch,
                               int in_bits, uint32_t hk0, uint32_t hk1,
-                              uint32_t hk2, uint32_t hk3, const Prg prg) {
+                              uint32_t hk2, uint32_t hk3, fss::Group g,
+                              const Prg prg) {
   prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= batch) return;
@@ -118,36 +129,75 @@ __global__ void ht_gen_kernel(const uint32_t* __restrict__ seeds,
                                      (int)(hcw[3] | lcw0));
   row[2 * (in_bits - 1) + 1] = make_int4((int)lcw1, 0, 0, 0);
   const uint32_t lc[4] = {hcw[0], hcw[1], hcw[2], hcw[3] | lcw_an};
-  leaf0[k] = make_int4((int)(l0[0] ^ (lc[0] & t0m)),
-                       (int)(l0[1] ^ (lc[1] & t0m)),
-                       (int)(l0[2] ^ (lc[2] & t0m)),
-                       (int)(l0[3] ^ (lc[3] & t0m)));
-  leaf1[k] = make_int4((int)(l1[0] ^ (lc[0] & t1m)),
-                       (int)(l1[1] ^ (lc[1] & t1m)),
-                       (int)(l1[2] ^ (lc[2] & t1m)),
-                       (int)(l1[3] ^ (lc[3] & t1m)));
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    l0[w] ^= lc[w] & t0m;
+    l1[w] ^= lc[w] & t1m;
+  }
+  if (betas == nullptr) {
+    leaf0[k] = make_int4((int)l0[0], (int)l0[1], (int)l0[2], (int)l0[3]);
+    leaf1[k] = make_int4((int)l1[0], (int)l1[1], (int)l1[2], (int)l1[3]);
+    return;
+  }
+  // v = beta - s0 + s1 in the group, negated when t1.
+  const uint32_t t1 = l1[3] & 1u;
+  l0[3] &= ~1u;
+  l1[3] &= ~1u;
+  const uint32_t* bp = betas + k * 4;
+  uint32_t v[4] = {__ldg(bp), __ldg(bp + 1), __ldg(bp + 2),
+                   __ldg(bp + 3) & ~1u};
+  fss::from_block<M>(g, v);
+  fss::from_block<M>(g, l0);
+  fss::from_block<M>(g, l1);
+  fss::gneg<M>(g, l0);
+  fss::gadd<M>(g, v, l0);
+  fss::gadd<M>(g, v, l1);
+  if (t1) fss::gneg<M>(g, v);
+  fss::into_block<M>(v);
+  ocw[k] = make_int4((int)v[0], (int)v[1], (int)v[2], (int)v[3]);
 }
 
 }  // namespace
 
 // seeds: [B, 2, 4]; alphas: lanes of key k at alphas[k * a_ks] (a_ks = 1
 // for [B] with in_bits <= 32, 4 for [B, 4]).
+// betas: [B, 4] (clamped bit ignored), or null for no output CW.
 // cws: [B, in_bits, 8] wire rows, written whole.
-// leaf0, leaf1: [B, 4] the parties' corrected alpha-direction leaves.
+// leaf0, leaf1: [B, 4] the parties' corrected alpha-direction leaves,
+// written without betas; ocw: [B, 4] the output CW, written with them.
+// mode: fss::Mode of the group; mask0..3 and mod0..3: fss::Group
+// (groups.gen_params).
 // prg: a host fss::PrgArg (ChaCha or AES-MMO with 1 key).
 extern "C" int fss_ht_gen(const void* seeds, const void* alphas,
-                          int64_t a_ks, void* cws, void* leaf0, void* leaf1,
+                          int64_t a_ks, const void* betas, void* cws,
+                          void* leaf0, void* leaf1, void* ocw,
                           int64_t batch, int in_bits, uint32_t hk0,
-                          uint32_t hk1, uint32_t hk2, uint32_t hk3,
-                          const void* prg, void* stream) {
+                          uint32_t hk1, uint32_t hk2, uint32_t hk3, int mode,
+                          uint32_t mask0, uint32_t mask1, uint32_t mask2,
+                          uint32_t mask3, uint32_t mod0, uint32_t mod1,
+                          uint32_t mod2, uint32_t mod3, const void* prg,
+                          void* stream) {
   if (batch <= 0) return 0;
+  const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
   const int threads = 128;
-  const int64_t blocks = (batch + threads - 1) / threads;
+  const unsigned blocks = (unsigned)((batch + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
   return fss::with_prg<1, AesTables>(prg, [&](auto p) {
-    return fss::launch_kernel<decltype(p)>(
-        ht_gen_kernel<decltype(p)>, (unsigned)blocks, threads,
-        (cudaStream_t)stream, (const uint32_t*)seeds, (const uint32_t*)alphas,
-        a_ks, (int4*)cws, (int4*)leaf0, (int4*)leaf1, batch, in_bits, hk0,
-        hk1, hk2, hk3, p);
+    using Prg = decltype(p);
+#define FSS_HT_GEN(M)                                                       \
+  return fss::launch_kernel<Prg>(                                           \
+      ht_gen_kernel<M, Prg>, blocks, threads, st, (const uint32_t*)seeds,   \
+      (const uint32_t*)alphas, a_ks, (const uint32_t*)betas, (int4*)cws,    \
+      (int4*)leaf0, (int4*)leaf1, (int4*)ocw, batch, in_bits, hk0, hk1,     \
+      hk2, hk3, g, p)
+    switch (mode) {
+      case fss::kXor: FSS_HT_GEN(fss::kXor);
+      case fss::kWrap: FSS_HT_GEN(fss::kWrap);
+      case fss::kMod64: FSS_HT_GEN(fss::kMod64);
+      case fss::kMod128: FSS_HT_GEN(fss::kMod128);
+      case fss::kMod128np: FSS_HT_GEN(fss::kMod128np);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef FSS_HT_GEN
   });
 }

@@ -8,14 +8,19 @@ PRG, and ``aes_pallas.ht_eval_packed`` with AES-128-MMO (the JAX package
 has no AES Half-Tree Gen kernel; here it is the AES instantiation of the
 Gen kernel): each wrapper takes the PRG object (``prg``, ChaCha or AesMmo
 with mul=1). Each source file says what bounds it on the H100 and what
-its design does about that.
+its design does about that: with AES the Eval kernel reads each level's
+key row in one 16-byte load (``csrc/ht_eval.cu``), so the wrapper hands
+it a 16-byte aligned ``cws`` (an aligned copy where the given one is
+not).
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel
 (a failing build or launch raises), CPU tensors to the plain PyTorch
 version beside each wrapper (``*_plain``), which computes the same
 function and is what the CPU tests and the card's kernel checks compare
-with. Group conversion (the DPF's ``finalize_leaves`` and ``output_cw``)
-is elementwise glue outside the kernels, as in the JAX package.
+with. The Gen kernel ends with the group-typed output CW when it is given
+betas and the group (``csrc/group.cuh``), so ``gen_batch`` is one launch;
+the Eval finalize (the DPF's ``finalize_leaves``) is elementwise glue
+outside the kernel, as in the JAX package.
 
 The CCR hash key and the PRG's nonce or round keys reach the kernels as
 arguments (the TPU kernels bake them in as constants), so a new key needs
@@ -32,6 +37,7 @@ import torch
 
 from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
+from fss_tpu_torch import groups
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
 from fss_tpu_torch.schemes import dpf as _dpf
 from fss_tpu_torch.schemes import half_tree_dpf as _ht
@@ -40,7 +46,8 @@ _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.P,
               _build.I64, _build.P, _build.P, _build.I64, _build.INT,
               _build.INT, *(_build.U32,) * 4, _build.P, _build.P)
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P, _build.P,
-             _build.I64, _build.INT, *(_build.U32,) * 4, _build.P, _build.P)
+             _build.P, _build.P, _build.I64, _build.INT, *(_build.U32,) * 4,
+             _build.INT, *(_build.U32,) * 8, _build.P, _build.P)
 
 
 def hash_words(hash_key) -> tuple:
@@ -92,6 +99,8 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
     if dev.type == "cpu":
         return eval_packed_plain(s0, cws, xs, in_bits, party, prg, hash_key)
     B = xs.shape[0]
+    if cws.data_ptr() % 16:  # the kernel's 16-byte row loads
+        cws = cws.clone()
     high = torch.empty((B, 4), dtype=torch.int32, device=dev)
     low = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _build.function("ht_eval", "fss_ht_eval", _EVAL_ARGS)
@@ -131,52 +140,71 @@ def eval_points(prg, group, in_bits: int, party: int, hash_key, s0, cws,
 # Gen
 # ---------------------------------------------------------------------------
 
-def _check_gen(s0s, alphas, in_bits):
+def _check_gen(s0s, alphas, in_bits, betas, group):
     _check_in_bits(in_bits)
+    if (betas is None) != (group is None):
+        raise ValueError("the output CW needs both betas and the group")
     B = s0s.shape[0]
-    dev = _device(s0s, alphas)
+    dev = _device(s0s, alphas, *(() if betas is None else (betas,)))
     _build.check(s0s, "s0s", dev, [(B, 2, 4)])
     _build.check(alphas, "alphas", dev,
                  [(B, 4)] if in_bits > 32 else [(B,), (B, 4)])
+    if betas is not None:
+        _build.check(betas, "betas", dev, [(B, 4)])
     return dev
 
 
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, prg,
-               hash_key):
+               hash_key, betas=None, group=None):
     """Every level of Half-Tree Gen for a batch of keys, with ``prg``
-    (ChaCha or AesMmo, mul=1) as the CCR hash.
+    (ChaCha or AesMmo, mul=1) as the CCR hash, and the output CW given
+    ``betas`` and ``group``.
 
     s0s [B, 2, 4] seeds; alphas [B], or [B, 4] lanes (required for
-    in_bits > 32). Returns (cws [B, in_bits, 8] whole wire rows, leaf0
-    [B, 4], leaf1 [B, 4]): the parties' corrected leaves in the alpha
-    direction, from which :func:`gen_batch` makes the output CW.
+    in_bits > 32); betas [B, 4] or None. Returns (cws [B, in_bits, 8]
+    whole wire rows, ocw [B, 4]) with betas, else (cws, leaf0 [B, 4],
+    leaf1 [B, 4]): the parties' corrected leaves in the alpha direction,
+    from which the output CW is made.
     """
-    dev = _check_gen(s0s, alphas, in_bits)
+    dev = _check_gen(s0s, alphas, in_bits, betas, group)
     arg, tag = _build.prg_arg(prg, 1)
     if dev.type == "cpu":
-        return gen_packed_plain(s0s, alphas, in_bits, prg, hash_key)
+        return gen_packed_plain(s0s, alphas, in_bits, prg, hash_key, betas,
+                                group)
     B = s0s.shape[0]
     cws = torch.empty((B, in_bits, 8), dtype=torch.int32, device=dev)
-    leaf0 = torch.empty((B, 4), dtype=torch.int32, device=dev)
-    leaf1 = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    def out():
+        return torch.empty((B, 4), dtype=torch.int32, device=dev)
+    leaf0, leaf1, ocw = ((out(), out(), None) if betas is None else
+                         (None, None, out()))
+    mode = groups.group_mode(group) if group is not None else "xor"
+    mask, mod = groups.gen_params(group) if group is not None else \
+        ((0,) * 4, (0,) * 4)
     fn = _build.function("ht_gen", "fss_ht_gen", _GEN_ARGS)
     _build.launch(
         "ht_gen", fn, s0s.data_ptr(), alphas.data_ptr(),
-        4 if alphas.dim() == 2 else 1, cws.data_ptr(), leaf0.data_ptr(),
-        leaf1.data_ptr(), B, in_bits, *hash_words(hash_key), arg,
-        device=dev, kernel="ht_gen" + tag)
-    return cws, leaf0, leaf1
+        4 if alphas.dim() == 2 else 1,
+        *(None if t is None else t.data_ptr()
+          for t in (betas, cws, leaf0, leaf1, ocw)),
+        B, in_bits, *hash_words(hash_key), groups.MODES.index(mode), *mask,
+        *mod, arg, device=dev, kernel="ht_gen" + tag)
+    return (cws, leaf0, leaf1) if betas is None else (cws, ocw)
 
 
-def gen_packed_plain(s0s, alphas, in_bits: int, prg, hash_key):
+def gen_packed_plain(s0s, alphas, in_bits: int, prg, hash_key, betas=None,
+                     group=None):
     """Plain PyTorch version of :func:`gen_packed`, on any device."""
-    _check_gen(s0s, alphas, in_bits)
+    _check_gen(s0s, alphas, in_bits, betas, group)
     _build.check_prg(prg, 1)
-    return _ht.gen_keys(prg, in_bits, hash_block(hash_key, s0s.device), s0s,
-                        blk.input_bits_msb_first(_x_lanes(alphas), in_bits))
+    cws, leaf0, leaf1 = _ht.gen_keys(
+        prg, in_bits, hash_block(hash_key, s0s.device), s0s,
+        blk.input_bits_msb_first(_x_lanes(alphas), in_bits))
+    if betas is None:
+        return cws, leaf0, leaf1
+    return cws, _ht.output_cw(group, leaf0, leaf1, betas)
 
 
 def gen_batch(prg, group, in_bits: int, hash_key, s0s, alphas, betas):
-    """Batched Gen: (cws [B, in_bits, 8], ocw [B, 4])."""
-    cws, leaf0, leaf1 = gen_packed(s0s, alphas, in_bits, prg, hash_key)
-    return cws, _ht.output_cw(group, leaf0, leaf1, betas)
+    """Batched Gen: (cws [B, in_bits, 8], ocw [B, 4]), one launch."""
+    return gen_packed(s0s, alphas, in_bits, prg, hash_key, betas=betas,
+                      group=group)

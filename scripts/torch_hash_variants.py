@@ -396,7 +396,7 @@ def main() -> int:
             row["latency_clocks"] = chip_smoke.alu_latencies(
                 _build.nvcc(), cuobjdump, libs[name, "blake3"].parent)
         row["sass_fields"] = ["instructions", "alu", "lds", "alu_pipe",
-                              "imad", "viadd"]
+                              "imad", "viadd", "ldg"]
         print(json.dumps(row), flush=True)
     return 0
 

@@ -6,6 +6,7 @@ port's int32 tensors are compared with the JAX uint32 arrays bit for bit.
 
 import numpy as np
 import pytest
+import torch
 
 from fss_tpu import block as jblk
 from fss_tpu import groups as jgroups
@@ -116,3 +117,31 @@ def test_word_conversions_keep_bits():
     assert tgroups.to_int(tgroups.Uint(128, 1 << 127),
                           tblk.block([1, 2, 3, 4])) == \
         jgroups.to_int(None, [1, 2, 3, 4])
+
+
+# block.words on 64-bit inputs takes the low word of each value's bytes;
+# every case keeps the bytes (and shape) of the masked uint32 conversion.
+_WIDE = np.array([[0, -1, -(1 << 31), (1 << 63) - 1],
+                  [-(1 << 63), 1 << 32, -(1 << 32) - 3, 0x1234_5678_9ABC_DEF0]],
+                 dtype=np.int64)
+WORDS_CASES = {
+    "int64": _WIDE,
+    "uint64": _WIDE.view(np.uint64),
+    "int64-big-endian": _WIDE.astype(">i8"),
+    "int64-slice": np.tile(_WIDE, (3, 2))[::2, 1::3],
+    "int64-0d": np.array(-(1 << 40) - 9),
+    "python-ints": [1 << 32, (1 << 33) + 5, 7, (1 << 62) + 1],
+}
+
+
+@pytest.mark.parametrize("case", list(WORDS_CASES))
+def test_words_keep_low_words(case):
+    vals = WORDS_CASES[case]
+    arr = np.asarray(vals)
+    want = np.ascontiguousarray(
+        (arr.astype(np.uint64) & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    for device in (None, "cpu"):
+        got = tblk.words(vals, device)
+        assert got.dtype == torch.int32 and got.device.type == "cpu"
+        assert tuple(got.shape) == want.shape
+        assert tblk.to_numpy(got).tobytes() == want.tobytes()

@@ -22,12 +22,17 @@ from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.api import HalfTreeDpf
 from fss_tpu_torch.ops import eval_all_cuda, ht_cuda
+from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes import half_tree_dpf as plain_ht
 
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
 PRG1 = ChaCha(1, NONCE)
+# Both instantiations of the kernels: B-7/B-8 (ChaCha) and B-15 and the AES
+# Gen (AES-128-MMO, the JAX bench's first key).
+PRGS = {"chacha": PRG1, "aes": AesMmo(1, (bytes(range(16)),))}
 HASH_KEY = (0x01234567, 0x89ABCDEF, 0xDEADBEEF, 0x0BADF00D)
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
@@ -96,6 +101,62 @@ GROUP_KINDS = {"xor": groups.Bytes(), "wrap": groups.Uint(32),
                "mod128np": groups.Uint(128, (1 << 127) - 1)}
 
 
+
+# B-15 and B-7 on each row path (csrc/ht_eval.cu): wire rows (with AES
+# through the TMA ring), one broadcast key, and wire rows at a 4-byte offset
+# (the wrapper's aligned copy); a batch off every CTA's and box's multiple;
+# x as one lane or four.
+@pytest.mark.parametrize("layout", ["wire", "broadcast", "offset"])
+@pytest.mark.parametrize("n,lanes", [(1, False), (2, False), (16, False),
+                                     (16, True), (33, True), (128, True)])
+@pytest.mark.parametrize("prg", list(PRGS))
+def test_eval_kernel_row_paths(prg, n, lanes, layout, cuda):
+    rng = np.random.default_rng(300 + n)
+    batch = 1000 + 37
+    P = PRGS[prg]
+    s0s = _words(rng, (batch, 2, 4), cuda)
+    alphas = _inputs(rng, n, batch, cuda, lanes)
+    wire, _ = ht_cuda.gen_batch(P, groups.Bytes(), n, HASH_KEY, s0s, alphas,
+                                _words(rng, (batch, 4), cuda))
+    xs = alphas.clone()
+    xs.view(batch, -1)[1::2, 0] ^= 1
+    if layout == "offset":
+        flat = torch.empty(wire.numel() + 1, dtype=torch.int32, device=cuda)
+        cws = flat[1:].view(wire.shape)
+        cws.copy_(wire)
+        assert cws.data_ptr() % 16
+    else:
+        cws = wire if layout == "wire" else wire[0].contiguous()
+    s0 = (s0s[0, 0] if layout == "broadcast" else s0s[:, 0]).contiguous()
+    for party in (0, 1):
+        got = ht_cuda.eval_packed(s0, cws, xs, n, party, P, HASH_KEY)
+        want = ht_cuda.eval_packed_plain(s0, cws, xs, n, party, P, HASH_KEY)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# The output CW inside the Gen kernel, for every group kind, against the
+# plain Gen and against the output CW of the kernel's own leaves.
+@pytest.mark.parametrize("kind", list(GROUP_KINDS))
+@pytest.mark.parametrize("n,lanes", [(1, False), (1, True), (16, False),
+                                     (16, True), (128, True)])
+@pytest.mark.parametrize("prg", list(PRGS))
+def test_gen_kernel_output_cw(prg, n, lanes, kind, cuda):
+    rng = np.random.default_rng(600 + n)
+    batch = 500
+    P, g = PRGS[prg], GROUP_KINDS[kind]
+    s0s = _words(rng, (batch, 2, 4), cuda)
+    alphas = _inputs(rng, n, batch, cuda, lanes)
+    betas = _words(rng, (batch, 4), cuda)
+    got = ht_cuda.gen_packed(s0s, alphas, n, P, HASH_KEY, betas=betas,
+                             group=g)
+    want = ht_cuda.gen_packed_plain(s0s, alphas, n, P, HASH_KEY, betas=betas,
+                                    group=g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    cws, leaf0, leaf1 = ht_cuda.gen_packed(s0s, alphas, n, P, HASH_KEY)
+    assert torch.equal(cws, got[0])
+    assert torch.equal(got[1], plain_ht.output_cw(g, leaf0, leaf1, betas))
+
+
 @pytest.mark.parametrize("kind", list(GROUP_KINDS))
 @pytest.mark.parametrize("most", [2, 12])
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 13])
@@ -114,6 +175,8 @@ def test_eval_all_kernel_matches_plain(n, most, kind, cuda):
 
 
 def test_kernels_count_launches(cuda):
+    """Gen (its output CW in the kernel), Eval and EvalAll: 1, 1 and 2
+    launches."""
     _build.reset_launches()
     d = HalfTreeDpf(10, groups.Uint(32), hash_key=HASH_KEY, device=cuda)
     s0s = np.arange(8, dtype=np.uint32).reshape(2, 4)

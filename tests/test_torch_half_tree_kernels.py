@@ -20,6 +20,7 @@ from fss_tpu_torch import groups as tgroups
 from fss_tpu_torch import interop
 from fss_tpu_torch.ops import eval_all_cuda, ht_cuda
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes import half_tree_dpf
 from torch_threads import one_torch_thread  # noqa: F401
 
 NONCE = (0x600DCAFE, 0x0BADF00D)
@@ -123,3 +124,32 @@ def test_kernel_wrappers_validate_inputs():
     with pytest.raises(ValueError):  # alphas of 33..128 bits are lanes
         ht_cuda.gen_packed(torch.zeros((4, 2, 4), dtype=torch.int32), xs,
                            40, PRG1, hk)
+
+
+@pytest.mark.parametrize("kind", ["xor", "wrap", "mod64", "mod128",
+                                  "mod128np"])
+def test_gen_output_cw_of_its_leaves(kind, rng):
+    """gen_packed_plain with betas and the group: the output CW of its own
+    leaves (the Gen kernel's fused output CW is held to this on the
+    card)."""
+    g = {"xor": tgroups.Bytes(), "wrap": tgroups.Uint(32),
+         "mod64": tgroups.Uint(64, (1 << 61) - 1),
+         "mod128": tgroups.Uint(128, 1 << 127),
+         "mod128np": tgroups.Uint(128, (1 << 127) - 1)}[kind]
+    in_bits, B = 5, 16
+    hk = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    s0s = to_cpu(rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint32))
+    alphas = to_cpu(rng.integers(0, 2**in_bits, size=B, dtype=np.uint32))
+    betas = to_cpu(rng.integers(0, 2**32, size=(B, 4), dtype=np.uint32))
+    cws, leaf0, leaf1 = ht_cuda.gen_packed_plain(s0s, alphas, in_bits, PRG1,
+                                                 hk)
+    got = ht_cuda.gen_packed_plain(s0s, alphas, in_bits, PRG1, hk,
+                                   betas=betas, group=g)
+    assert torch.equal(got[0], cws)
+    assert torch.equal(got[1], half_tree_dpf.output_cw(g, leaf0, leaf1,
+                                                       betas))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ht_cuda.gen_packed(s0s, alphas, in_bits, PRG1, hk, betas=betas,
+                           group=g), got))
+    with pytest.raises(ValueError):  # both or neither
+        ht_cuda.gen_packed(s0s, alphas, in_bits, PRG1, hk, betas=betas)
