@@ -27,11 +27,16 @@ Phases, each printing one line (any failure exits non-zero):
      the hash kernels also on the reference's primitive
      vectors, the flat proof chains on 4096 points and around their
      rings' sizes (rows 16-byte aligned and not), and B-12 on points below
-     2^32, 128-bit points and warps that mix them;
-  4. golden: the reference's DPF, DCF, Half-Tree and VDPF vectors, ChaCha
-     and AES, through Dpf("cuda"), Dcf("cuda"), HalfTreeDpf("cuda") and
-     Vdpf("cuda"), the VDPF's pi~, proofs and reference-fold EvalAll
-     proofs included;
+     2^32, 128-bit points and warps that mix them; the Feistel route
+     kernel at 8-64 bits with 53 and 74 buckets (points below n and
+     above it, which are not walked), its PRP alone on a domain of
+     2^20 + 1 and on 4-lane points, and its permutation table
+     (``feistel_checks``);
+  4. golden: the reference's DPF, DCF, Half-Tree, VDPF, Grotto and VDMPF
+     vectors, ChaCha and AES, through Dpf("cuda"), Dcf("cuda"),
+     HalfTreeDpf("cuda"), Vdpf("cuda"), GrottoDcf("cuda") and
+     Vdmpf("cuda"), the VDPF's pi~, proofs and reference-fold EvalAll
+     proofs and the VDMPF's Gen bytes and reference-fold proofs included;
   5. main paths at full size, each with the launch counts zeroed just
      before it and read just after; first with ChaCha:
      - DPF: batched Gen of 2^20 keys over a 16-bit domain (Uint(32),
@@ -53,12 +58,18 @@ Phases, each printing one line (any failure exits non-zero):
      then the JAX bench's AES block (bench.py:220-360) at the same sizes,
      with AES-128-MMO keyed by bytes(range(16 i, 16 (i + 1))): the DPF
      (mul=2), the DCF (mul=4, lt), the Half-Tree DPF (mul=1) and the VDPF
-     (mul=2) with SHA-256 keyed by the bench's key;
+     (mul=2) with SHA-256 keyed by the bench's key; then the Grotto DCF
+     (ChaCha, then AES) and the VDMPF (ChaCha with BLAKE3 and with
+     SHA-256, then AES with SHA-256) at the JAX bench's shapes
+     (``grotto_path``, ``vdmpf_path``);
   6. timing: CUDA-event times of each kernel and of the entry points at
      the main-path shapes, beside the bound of the same work, and the
      Eval kernels on one broadcast key beside their wire rows; each timed
      kernel is held against its plain version on the same inputs; each
-     EvalAll call's launches and their times.
+     EvalAll call's launches and their times; the Grotto queries and
+     EvalAll, the VDMPF's batch_eval and Gen split into their parts, and
+     the route kernel alone (``grotto_timing``, ``vdmpf_timing``,
+     ``feistel_row``).
 
 The last lines are the kernels JSON line, the card's name and power limit
 as nvidia-smi gives them, and the result JSON line.
@@ -297,8 +308,14 @@ def hash_alu(name: str, use: str) -> int:
     return c.ops
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _START, 1)}),
+          flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -313,6 +330,22 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs queued behind a sleep
+    of ~50 ms on the stream, so that the host's time to launch each (longer
+    than a short kernel's run) leaves no gaps between them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)  # clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -604,6 +637,478 @@ def alu_latencies(nvcc: str, cuobjdump: pathlib.Path,
     return result
 
 
+def hexw(h):
+    """Hex bytes -> their little-endian uint32 words."""
+    return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
+
+
+def raw(t):
+    """An int32 tensor's bytes."""
+    from fss_tpu_torch import block as blk
+    return blk.to_numpy(t).tobytes()
+
+
+def case_prg(case, mul):
+    """A golden case's PRG: AES-MMO with its first ``mul`` keys, or ChaCha
+    with its nonce."""
+    from fss_tpu_torch.prg.aes import AesMmo
+    from fss_tpu_torch.prg.chacha import ChaCha
+    if case["prg"] == "aes":
+        return AesMmo(mul, [bytes.fromhex(k) for k in case["aes_keys"][:mul]])
+    return ChaCha(mul, (case["nonce_lo"], case["nonce_hi"]))
+
+
+# ---------------------------------------------------------------------------
+# The Grotto DCF and the VDMPF: their checks (phases 3 and 4), main paths
+# (phase 5) and timings (phase 6)
+# ---------------------------------------------------------------------------
+
+# The route kernel's checks: indices as words (to 29 bits) and as lanes,
+# halves of up to 32 bits and above (33 and 64 bits: the 4-lane points),
+# and 53 and 74 buckets; a PRP whose walk takes many passes (a domain of
+# 2^20 + 1 in a 2^22 network) and one of 4-lane points; the table.
+ROUTE_CHECK_BITS = (8, 16, 22, 23, 29, 30, 33, 64)
+WALK_CHECK_DOMAIN = (1 << 20) + 1
+TABLE_CHECK_DOMAIN = 3 << 8
+# The JAX bench's shapes (bench.py:679-735): a 20-bit Grotto key at alpha
+# 123456 queried at 2^20 points, EvalAll at 20 (alpha 500) and 24 bits; a
+# 16-bit VDMPF, t = 30, 2^14 points plus the alphas.
+GROTTO_BITS = 20
+GROTTO_ALPHA = 123456
+GROTTO_LOG2_QUERIES = 20
+GROTTO_EVAL_ALL_BITS = (20, 24)
+GROTTO_EA_ALPHA = 500
+VDMPF_BITS = 16
+VDMPF_T = 30
+VDMPF_LOG2_POINTS = 14
+FEISTEL_REPLACES = ("XLA: fss_tpu/prp/feistel.py:151 (Aes128Feistel.permu; "
+                    "permu_lanes :201) and the Locate of "
+                    "fss_tpu/schemes/vdmpf.py:118 (route)")
+
+
+def _sigma(rng) -> bytes:
+    return bytes(rng.integers(0, 256, size=16, dtype=np.uint8))
+
+
+def feistel_checks(dev, rng, sample: int) -> list:
+    """Phase 3: the route kernel against route_plain, byte-exact, at every
+    ROUTE_CHECK_BITS on ``sample`` points below n and 64 at or above it
+    (outside the function: not walked, bucket -1); the PRP of points on
+    WALK_CHECK_DOMAIN and of 4-lane points; the permutation table at
+    TABLE_CHECK_DOMAIN against the plain table and the host oracle.
+    Returns [(name, ok)]."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch.ops import feistel_cuda
+    from fss_tpu_torch.prp.feistel import Aes128Feistel
+    checks = []
+    for bits in ROUTE_CHECK_BITS:
+        n, kappa = 1 << bits, 3
+        prp = Aes128Feistel(_sigma(rng), n * kappa)
+        vals = [int(v) % n for v in rng.integers(0, 2**63, size=sample)]
+        vals += [n + int(v) % n for v in rng.integers(0, 2**63, size=64)]
+        xs = (blk.words(np.asarray(vals, dtype=np.uint64), dev)
+              if 2 * n <= 2**32 else blk.pack_inputs(vals, 128, dev))
+        for m_rt in (53, 74):
+            args = (prp, n, kappa, -(-n * kappa // m_rt), xs,
+                    1 if bits <= 29 else 4)
+            got = feistel_cuda.route(*args)
+            ok = same(got, feistel_cuda.route_plain(*args))
+            ok &= bool((got[0][-64:] == -1).any())
+            checks.append((f"feistel_route n={bits} m_rt={m_rt}", ok))
+    prp = Aes128Feistel(_sigma(rng), WALK_CHECK_DOMAIN)
+    xs = blk.words(rng.integers(0, prp.domain, size=sample,
+                                dtype=np.uint64), dev)
+    checks.append((f"feistel_permute domain={prp.domain}", same(
+        feistel_cuda.permute(prp, xs), feistel_cuda.permute_plain(prp, xs))))
+    wide = Aes128Feistel(_sigma(rng), 3 << 64)
+    x4 = blk.pack_inputs([int(v) % wide.domain for v in rng.integers(
+        0, 2**63, size=sample)], 128, dev)
+    checks.append(("feistel_permute domain=3*2^64 lanes", same(
+        feistel_cuda.permute(wide, x4), feistel_cuda.permute_plain(wide,
+                                                                   x4))))
+    small = Aes128Feistel(_sigma(rng), TABLE_CHECK_DOMAIN)
+    table = small.permutation_table(dev).cpu()
+    checks.append((f"feistel table domain={small.domain}", torch.equal(
+        table, feistel_cuda.table_plain(small, "cpu"))
+        and table.tolist() == [small.permu_host(x)
+                               for x in range(small.domain)]
+        and sorted(table.tolist()) == list(range(small.domain))))
+    return checks
+
+
+def grotto_golden_case(case, failures: list, dev) -> None:
+    """Phase 4: Gen's bytes, both parties' ys at every x through the
+    ParityTree and the PrefixTable, and both EvalAll heads and digests."""
+    from fss_tpu_torch.api import GrottoDcf
+    n = case["in_bits"]
+    tag = f"grotto {case['prg']}-{n}-{case['alpha']}"
+    d = GrottoDcf(n, case_prg(case, 2), device=dev)
+    s0s = np.stack([hexw(h) for h in case["s0s"]])
+    cws = d.gen(s0s, int(case["alpha"], 0))
+    if raw(cws) != np.stack([hexw(r) for r in case["cws"]]).tobytes():
+        failures.append(f"{tag} gen")
+    xs = [int(x, 0) for x in case["xs"]]
+    for party in (0, 1):
+        want = [int(y) for y in case[f"ys{party}"]]
+        for how in ("preprocess", "preprocess_prefix"):
+            pt = getattr(d, how)(party, s0s[party], cws)
+            if d.eval(pt, xs).tolist() != want:
+                failures.append(f"{tag} {how} eval party{party}")
+        full = d.eval_all(party, s0s[party], cws).cpu().numpy().astype(
+            np.uint8).tobytes()
+        if (full[:32] != bytes.fromhex(case[f"eval_all_head{party}"])
+                or hashlib.sha256(full).hexdigest()
+                != case[f"eval_all_digest{party}"]):
+            failures.append(f"{tag} eval_all party{party}")
+
+
+def vdmpf_golden_case(case, failures: list, dev) -> None:
+    """Phase 4: m, m_rt, b_size_rt, Gen's bytes (every bucket's cws, cs and
+    ocw, both parties' seeds), and both parties' ys and proofs with the
+    reference fold."""
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Vdmpf
+    from fss_tpu_torch.hash import Blake3, Sha256
+    tag = (f"vdmpf {case['prg']}-{case['hash']}-{case['in_bits']}-"
+           f"t{case['t']}")
+    hashes = (Sha256(hexw(case["hash_key"])) if case["hash"] == "sha256"
+              else Blake3(np.concatenate([hexw(h)
+                                          for h in case["blake3_iv"]])))
+    d = Vdmpf(case["in_bits"], max_points=case["max_points"],
+              bucket_bits=case["bucket_bits"], group=groups.Uint(64),
+              prg=case_prg(case, 2), hashes=hashes, device=dev)
+    s0s = np.stack([np.stack([hexw(a), hexw(b)]) for a, b in zip(
+        case["bucket_s0s0"], case["bucket_s0s1"])])
+    k0, k1, fail = d.gen(bytes.fromhex(case["sigma"]), s0s,
+                         [int(a, 0) for a in case["alphas"]],
+                         np.stack([hexw(h) for h in case["betas"]]))
+    buckets = case["buckets"]
+    if (fail or d.m != case["m"] or k0.m_rt != case["m_rt"]
+            or k0.b_size_rt != case["b_size_rt"]
+            or raw(k0.cws) != np.stack([np.stack([hexw(r) for r in b["cws"]])
+                                        for b in buckets]).tobytes()
+            or raw(k0.cs) != b"".join(bytes.fromhex(b["cs"])
+                                      for b in buckets)
+            or raw(k0.ocw) != b"".join(bytes.fromhex(b["ocw"])
+                                       for b in buckets)
+            or raw(k0.s0) + raw(k1.s0) != b"".join(
+                bytes.fromhex(h) for h in case["bucket_s0s0"]
+                + case["bucket_s0s1"])):
+        failures.append(f"{tag} gen")
+    xs = [int(x, 0) for x in case["xs"]]
+    for party, key in ((0, k0), (1, k1)):
+        ys, pi = d.batch_eval(party, key, xs, fold="reference")
+        if raw(ys) != b"".join(bytes.fromhex(h)
+                               for h in case[f"ys{party}"]):
+            failures.append(f"{tag} ys party{party}")
+        if raw(pi) != bytes.fromhex(case[f"pi{party}"]):
+            failures.append(f"{tag} pi party{party}")
+
+
+def grotto_path(prg2, sfx: str, dev, rng):
+    """5e. Grotto at the bench's shape: Gen at GROTTO_BITS, both parties'
+    prefix tables and parity trees, 2^GROTTO_LOG2_QUERIES queries through
+    each, reconstructed to 1[alpha <= x]; EvalAll of a key at each of
+    GROTTO_EVAL_ALL_BITS, reconstructed over the domain."""
+    from fss_tpu_torch import _build
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch.api import GrottoDcf
+    d = GrottoDcf(GROTTO_BITS, prg2, device=dev)
+    ea = {b: GrottoDcf(b, prg2, device=dev) for b in GROTTO_EVAL_ALL_BITS}
+    s0s = blk.words(rng.integers(0, 2**32, size=(2, 4), dtype=np.uint64),
+                    dev)
+    q = blk.words(rng.integers(0, 2**GROTTO_BITS,
+                               size=1 << GROTTO_LOG2_QUERIES,
+                               dtype=np.uint64), dev)
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cws = d.gen(s0s, GROTTO_ALPHA)
+    tables = [d.preprocess_prefix(p, s0s[p], cws) for p in (0, 1)]
+    rec = d.eval(tables[0], q) ^ d.eval(tables[1], q)
+    trees = [d.preprocess(p, s0s[p], cws) for p in (0, 1)]
+    rec_tree = d.eval(trees[0], q) ^ d.eval(trees[1], q)
+    ea_keys, ea_rec = {}, {}
+    for b, e in ea.items():
+        ea_keys[b] = e.gen(s0s, GROTTO_EA_ALPHA)
+        ea_rec[b] = (e.eval_all(0, s0s[0], ea_keys[b])
+                     ^ e.eval_all(1, s0s[1], ea_keys[b]))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k + sfx: _build.launches[k + sfx]
+                for k in ("dpf_gen", "dpf_eval_all")}
+
+    want = (blk.u64(q) >= GROTTO_ALPHA).to(torch.int32)
+    rec_ok, tree_ok = torch.equal(rec, want), torch.equal(rec_tree, want)
+    ea_ok = all(torch.equal(r, (torch.arange(1 << b, device=dev)
+                                >= GROTTO_EA_ALPHA).to(torch.int32))
+                for b, r in ea_rec.items())
+    log("main_path", scheme="grotto", prg=type(prg2).__name__,
+        in_bits=GROTTO_BITS, queries=q.numel(), seconds=round(main_s, 3),
+        prefix_table_ok=rec_ok, parity_tree_ok=tree_ok,
+        eval_all_bits=list(ea), eval_all_ok=ea_ok, launches=launches)
+    ok = (rec_ok and tree_ok and ea_ok
+          and all(v > 0 for v in launches.values()))
+    return ok, dict(d=d, ea=ea, ea_keys=ea_keys, s0s=s0s, cws=cws, q=q,
+                    tables=tables, trees=trees, main_s=main_s,
+                    launches=launches)
+
+
+def vdmpf_inputs():
+    """The bench's VDMPF draws: default_rng(7), the sorted distinct alphas,
+    betas with lane 0 below 2^31; the Generator goes on to Gen's draws."""
+    vrng = np.random.default_rng(7)
+    alphas = sorted(vrng.choice(1 << VDMPF_BITS, size=VDMPF_T,
+                                replace=False).tolist())
+    betas = np.zeros((VDMPF_T, 4), dtype=np.uint32)
+    betas[:, 0] = vrng.integers(0, 2**31, size=VDMPF_T)
+    return vrng, alphas, betas
+
+
+def vdmpf_path(prg2, sfx: str, name: str, hashes, dev):
+    """5f. VDMPF(VDMPF_BITS, Uint(32)) keyed with ``hashes``: gen_retry from
+    the bench's draws, batch_eval of both parties at 2^VDMPF_LOG2_POINTS
+    random points plus the alphas with the tree fold and with the
+    reference fold; every point reconstructs (beta_j at alpha_j, else 0),
+    the shares of both folds agree and each fold's proofs are equal."""
+    from fss_tpu_torch import _build
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Vdmpf
+    g = groups.Uint(32)
+    d = Vdmpf(VDMPF_BITS, group=g, prg=prg2, hashes=hashes, device=dev)
+    vrng, alphas, betas = vdmpf_inputs()
+    kernels = ("feistel_route", f"vdpf_eval{sfx}", f"dpf_gen{sfx}",
+               f"{name}_xor_hash", f"{name}_hash64", f"{name}_chain")
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    keys = d.gen_retry(vrng, alphas, betas)
+    xs = blk.words(np.concatenate([vrng.integers(
+        0, 1 << VDMPF_BITS, size=1 << VDMPF_LOG2_POINTS), alphas]).astype(
+            np.uint32), dev)
+    out = {fold: [d.batch_eval(p, k, xs, fold) for p, k in enumerate(keys)]
+           for fold in ("tree", "reference")}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: _build.launches[k] for k in kernels}
+
+    beta_of = dict(zip(alphas, betas[:, 0].tolist()))
+    want = g.from_block(blk.pack_inputs(np.asarray(
+        [beta_of.get(int(x), 0) for x in blk.to_numpy(xs)],
+        dtype=np.uint32), 32, dev))
+    rec_ok = all(torch.equal(g.add(y0, y1), want)
+                 for (y0, _), (y1, _) in out.values())
+    proofs_ok = {fold: d.verify(p0, p1)
+                 for fold, ((_, p0), (_, p1)) in out.items()}
+    folds_agree = all(torch.equal(out["tree"][p][0], out["reference"][p][0])
+                      for p in (0, 1))
+    plain = vdmpf_vs_plain(d, keys[0], xs, {f: o[0] for f, o in out.items()})
+    log("main_path", scheme="vdmpf", prg=type(prg2).__name__, hash=name,
+        in_bits=VDMPF_BITS, t=VDMPF_T, points=xs.numel(), m=d.m,
+        m_rt=keys[0].m_rt, b_size_rt=keys[0].b_size_rt,
+        bucket_bits=d.bucket_bits, entries=xs.numel() * d.kappa,
+        seconds=round(main_s, 3), reconstruct_ok=rec_ok,
+        proofs_equal=proofs_ok, folds_agree=folds_agree, launches=launches,
+        **plain)
+    ok = (rec_ok and all(proofs_ok.values()) and folds_agree
+          and plain["inner_eval_vs_plain_ok"]
+          and all(plain["party0_vs_plain_ok"].values())
+          and all(v > 0 for v in launches.values()))
+    return ok, dict(d=d, keys=keys, xs=xs, main_s=main_s,
+                    launches=launches)
+
+
+def vdmpf_vs_plain(d, key, xs, got: dict) -> dict:
+    """Party 0 of the VDMPF main path against the plain versions, exactly:
+    the fused eval's shares and pi~ at the main path's gathered rows and
+    indices against ``eval_packed_plain`` on the card (with the same
+    correction and finalize), and ``got`` (fold -> party 0's (ys, pi) from
+    the main path) against a CPU Vdmpf on the same key and points, whose
+    every step (route, eval, hash64, chains) is its plain version."""
+    from fss_tpu_torch.api import Vdmpf
+    from fss_tpu_torch.ops import vdpf_cuda
+    from fss_tpu_torch.schemes import dpf as dpf_s
+    from fss_tpu_torch.schemes import vdmpf as vm
+    from fss_tpu_torch.schemes import vdpf as vdpf_s
+    bucket, index = vm.route(key, VDMPF_BITS, xs, d.kappa)
+    b, j = bucket.reshape(-1).long(), index.reshape(-1)
+    rows = (key.s0[b], key.cws[b], key.cs[b], key.ocw[b])
+    ys_e, pt_e = vdpf_cuda.eval_points(d.prg, d.hashes, d.group,
+                                       d.bucket_bits, 0, *rows, j)
+    so, t, pi = vdpf_cuda.eval_packed_plain(rows[0], rows[1], j,
+                                            d.bucket_bits, 0, d.prg,
+                                            d.hashes)
+    eval_ok = (torch.equal(ys_e, dpf_s.finalize_leaves(d.group, 0, so, t,
+                                                       rows[3]))
+               and torch.equal(pt_e, vdpf_s.correct_(pi, t, rows[2])))
+    t0 = time.perf_counter()
+    dc = Vdmpf(VDMPF_BITS, max_points=d.max_points,
+               bucket_bits=d.bucket_bits, group=d.group, prg=d.prg,
+               hashes=d.hashes, kappa=d.kappa, ch_lambda=d.ch_lambda,
+               device="cpu")
+    kc = vm.VdmpfKey(key.sigma, key.m_rt, key.b_size_rt,
+                     *(a.cpu() for a in key[3:]))
+    folds_ok = {}
+    for fold, (ys, pi) in got.items():
+        ys_c, pi_c = dc.batch_eval(0, kc, xs.cpu(), fold)
+        folds_ok[fold] = (torch.equal(ys.cpu(), ys_c)
+                          and torch.equal(pi.cpu(), pi_c))
+    return {"inner_eval_rows": b.numel(), "inner_eval_vs_plain_ok": eval_ok,
+            "party0_vs_plain_ok": folds_ok,
+            "cpu_plain_s": time.perf_counter() - t0}
+
+
+def feistel_row(V, bound, launches: int) -> dict:
+    """The kernels line's feistel_route row at the VDMPF main path's shape
+    (its points, its key), held against route_plain: ``ms`` the kernel's
+    launches back to back into the same outputs
+    (``feistel_cuda.launch_route``, the wrapper's own launch without its
+    checks and allocations), queued behind a sleep (``queued_ms``: the
+    host takes longer to launch one than the kernel to run);
+    ``wrapper_ms`` those of ``feistel_cuda.route`` as a caller sees them.
+    The bound counts the AES blocks of this run's cycle walks (4 a Feistel
+    pass) at AES_ALU ALU instructions and AES_LDS lookups each, and x in,
+    bucket and index out."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch.ops import feistel_cuda
+    from fss_tpu_torch.prp.feistel import Aes128Feistel
+    d, key, xs = V["d"], V["keys"][0], V["xs"]
+    n, kappa = 1 << VDMPF_BITS, d.kappa
+    prp = Aes128Feistel(key.sigma, n * kappa)
+    args = (prp, n, kappa, key.b_size_rt, xs, 1)
+    got = feistel_cuda.route(*args)
+    err = max_abs_err(got, feistel_cuda.route_plain(*args))
+    wrapper_ms = cuda_ms(lambda: feistel_cuda.route(*args), 20)
+    plain_ms = cuda_ms(lambda: feistel_cuda.route_plain(*args), 2)
+    out = [torch.empty_like(t) for t in got]
+    ms = queued_ms(lambda: feistel_cuda.launch_route(
+        prp, n, kappa, key.b_size_rt, xs, *out), 200)
+    err = max(err, max_abs_err(tuple(out), got))
+    vals = torch.zeros((xs.numel(), kappa, 4), dtype=torch.int64,
+                       device=xs.device)
+    vals[..., 0] = blk.u64(xs)[:, None] + n * torch.arange(
+        kappa, device=xs.device)
+    _, passes = feistel_cuda.walk_plain(prp, vals)
+    blocks = 4 * passes
+    entries = xs.numel() * kappa
+    bound_ms, bound_by = bound(blocks * AES_ALU,
+                               xs.numel() * 4 + entries * (4 + 4),
+                               blocks * AES_LDS)
+    return {"name": "feistel_route", "route": "cuda",
+            "source": "fss_tpu_torch/csrc/feistel.cu",
+            "replaces": FEISTEL_REPLACES, "status": "ported",
+            "tpu_row": "XLA glue", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "wrapper_ms": wrapper_ms, "walk_passes": passes,
+            "values": entries}
+
+
+def vdmpf_timing(V, power_limit: str, kind: str) -> None:
+    """6. The VDMPF's entry points at the main path's shape: batch_eval end
+    to end with each fold, and its parts on the same inputs (the point
+    check, route with the key's PRP made once as ``Vdmpf`` keeps it, the
+    row gathers, the fused eval kernel, its correction and finalize glue,
+    the group fold, each fold); gen_retry end to end, its host Cuckoo
+    insertion apart."""
+    from fss_tpu_torch.ops import vdpf_cuda
+    from fss_tpu_torch.schemes import cuckoo
+    from fss_tpu_torch.schemes import vdmpf as vm
+    d, key, xs = V["d"], V["keys"][0], V["xs"]
+    prp = vm.key_prp(key, VDMPF_BITS, d.kappa)
+    bucket, index = vm.route(key, VDMPF_BITS, xs, d.kappa, prp)
+    b, j = bucket.reshape(-1).long(), index.reshape(-1)
+    rows = (key.s0[b], key.cws[b], key.cs[b], key.ocw[b])
+    ys_e, pt_e = vdpf_cuda.eval_points(d.prg, d.hashes, d.group,
+                                       d.bucket_bits, 0, *rows, j)
+    parts = {
+        "point_check_ms": cuda_ms(lambda: vm.check_points(xs, VDMPF_BITS),
+                                  20),
+        "route_ms": cuda_ms(lambda: vm.route(key, VDMPF_BITS, xs, d.kappa,
+                                             prp), 20),
+        "row_gathers_ms": cuda_ms(lambda: (key.s0[b], key.cws[b], key.cs[b],
+                                           key.ocw[b]), 20),
+        "inner_eval_kernel_ms": cuda_ms(lambda: vdpf_cuda.eval_packed(
+            rows[0], rows[1], j, d.bucket_bits, 0, d.prg, d.hashes), 20),
+        "inner_eval_ms": cuda_ms(lambda: vdpf_cuda.eval_points(
+            d.prg, d.hashes, d.group, d.bucket_bits, 0, *rows, j), 20),
+        "group_fold_ms": cuda_ms(lambda: vm.group_fold(d.group, ys_e,
+                                                       d.kappa), 20),
+        "tree_fold_ms": cuda_ms(lambda: vm.tree_fold(d.hashes, key.cs,
+                                                     pt_e), 10),
+        "reference_fold_ms": cuda_ms(lambda: vm.reference_fold(
+            d.hashes, key.cs, b, pt_e), 3),
+    }
+    e2e = {fold: cuda_ms(lambda f=fold: d.batch_eval(0, key, xs, f),
+                         10 if fold == "tree" else 3)
+           for fold in ("tree", "reference")}
+
+    def gen():
+        vrng, alphas, betas = vdmpf_inputs()
+        d.gen_retry(vrng, alphas, betas)
+        torch.cuda.synchronize()
+
+    gen()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        gen()
+    gen_ms = (time.perf_counter() - t0) / 3 * 1e3
+    _, alphas, _ = vdmpf_inputs()
+    n = 1 << VDMPF_BITS
+    t0 = time.perf_counter()
+    table = cuckoo.compact_run(prp, alphas, key.m_rt, n, key.b_size_rt,
+                               1000, d.kappa)
+    cuckoo_ms = (time.perf_counter() - t0) * 1e3
+    log("timing", scheme="vdmpf", prg=type(d.prg).__name__,
+        hash=type(d.hashes).__name__, card=kind, power_limit=power_limit,
+        points=xs.numel(), entries=b.numel(),
+        batch_eval_points_per_s={f: xs.numel() / (ms / 1e3)
+                                 for f, ms in e2e.items()},
+        batch_eval_ms=e2e, batch_eval_parts=parts,
+        gen_retry_ms=gen_ms, gen_cuckoo_host_ms=cuckoo_ms,
+        cuckoo_placed=sum(j != -1 for j, _ in table),
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+
+
+def grotto_timing(G, power_limit: str, kind: str) -> None:
+    """6. Grotto at the main path's shape: the query batch against the
+    prefix table and the parity tree (queries/s), the prefix table's
+    preprocessing, and EvalAll at each of GROTTO_EVAL_ALL_BITS (items/s),
+    with the expand_leaves kernel apart from the scan and the packing."""
+    from fss_tpu_torch.ops import eval_all_cuda
+    from fss_tpu_torch.schemes import grotto_dcf as gr
+    d, q, s0 = G["d"], G["q"], G["s0s"][0]
+    query_ms = cuda_ms(lambda: d.eval(G["tables"][0], q), 20)
+    tree_query_ms = cuda_ms(lambda: d.eval(G["trees"][0], q), 5)
+    prefix_ms = cuda_ms(lambda: d.preprocess_prefix(0, s0, G["cws"]), 5)
+    ea = {}
+    for b, e in G["ea"].items():
+        k = G["ea_keys"][b]
+        _, t = eval_all_cuda.expand_leaves(e.prg, b, 0, s0, k[:b])
+        bits = gr.prefix_scan(t)
+        ms = cuda_ms(lambda e=e, k=k: e.eval_all(0, s0, k), 5)
+        ea[b] = {"eval_all_ms": ms, "items_per_s": (1 << b) / (ms / 1e3),
+                 "expand_leaves_ms": cuda_ms(
+                     lambda e=e, b=b, k=k: eval_all_cuda.expand_leaves(
+                         e.prg, b, 0, s0, k[:b]), 5),
+                 "scan_ms": cuda_ms(lambda t=t: gr.prefix_scan(t), 5),
+                 "pack_ms": cuda_ms(lambda bits=bits: gr.build_prefix_table(
+                     bits, 0), 5)}
+    log("timing", scheme="grotto", prg=type(d.prg).__name__, card=kind,
+        power_limit=power_limit, in_bits=GROTTO_BITS, queries=q.numel(),
+        prefix_queries_per_s=q.numel() / (query_ms / 1e3),
+        prefix_query_ms=query_ms,
+        parity_tree_queries_per_s=q.numel() / (tree_query_ms / 1e3),
+        parity_tree_query_ms=tree_query_ms, preprocess_prefix_ms=prefix_ms,
+        eval_all=ea, main_path_s=G["main_s"],
+        clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
+                          "temperature.gpu"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -611,7 +1116,7 @@ def main() -> int:
     from fss_tpu_torch import _build
     from fss_tpu_torch import block as blk
     from fss_tpu_torch import groups
-    from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, Vdpf
+    from fss_tpu_torch.api import DEFAULT_HASH_IV, Dcf, Dpf, HalfTreeDpf, Vdpf
     from fss_tpu_torch.hash import Blake3, Sha256
     from fss_tpu_torch.ops import (blake3_cuda, dcf_cuda, dpf_cuda,
                                    eval_all_cuda, ht_cuda, sha256_cuda,
@@ -631,12 +1136,6 @@ def main() -> int:
     def words(shape, bits=32):
         return blk.words(rng.integers(0, 2**bits, size=shape,
                                       dtype=np.uint64), dev)
-
-    def hexw(h):
-        return np.frombuffer(bytes.fromhex(h), dtype="<u4").copy()
-
-    def raw(t):
-        return blk.to_numpy(t).tobytes()
 
     def plain_xor(hashes):
         return functools.partial(vdpf_cuda.xor_hash_plain, hashes)
@@ -674,7 +1173,7 @@ def main() -> int:
             for name in ("blake3", "sha256", "vdpf_eval", "dpf_eval",
                          "dcf_eval", "ht_eval", "dpf_eval_all",
                          "dcf_eval_all", "ht_eval_all", "dpf_gen",
-                         "dcf_gen")}
+                         "dcf_gen", "feistel")}
     sass["sha256 chain roles"] = chain_role_usage(
         _build.nvcc(), cuobjdump, _build.CSRC, _build.BUILD_DIR)
     sass["blake3 chain roles"] = chain_role_usage(
@@ -1039,6 +1538,7 @@ def main() -> int:
             checks.append((f"{name} primitive {i} hash64",
                            raw(got) == bytes.fromhex(e["hash"])
                            and same(got, vdpf_cuda.hash64_plain(h, m))))
+    checks += feistel_checks(dev, rng, B)
     torch.cuda.synchronize()
     bad = [name for name, ok in checks if not ok]
     log("kernels", checked=len(checks),
@@ -1052,12 +1552,6 @@ def main() -> int:
             "uint64": groups.Uint(64),
             "uint127": groups.Uint(128, 1 << 127),
             "uint127m": groups.Uint(128, (1 << 127) - 1)}
-
-    def case_prg(case, mul):
-        if case["prg"] == "aes":
-            return AesMmo(mul, [bytes.fromhex(k)
-                                for k in case["aes_keys"][:mul]])
-        return ChaCha(mul, (case["nonce_lo"], case["nonce_hi"]))
 
     def golden_case(scheme, case, failures):
         n = case["in_bits"]
@@ -1132,13 +1626,17 @@ def main() -> int:
                     failures.append(f"{tag} eval_all party{party}")
 
     failures, counts = [], {}
-    for scheme in ("dpf", "dcf", "half_tree", "vdpf"):
+    for scheme in ("dpf", "dcf", "half_tree", "vdpf", "grotto", "vdmpf"):
         golden = json.loads((GOLDEN / f"{scheme}.json").read_text())["cases"]
         for case in golden:
             key = f"{scheme} {case['prg']}"
             counts[key] = counts.get(key, 0) + 1
             if scheme == "vdpf":
                 vdpf_golden_case(case, failures)
+            elif scheme == "grotto":
+                grotto_golden_case(case, failures, dev)
+            elif scheme == "vdmpf":
+                vdmpf_golden_case(case, failures, dev)
             else:
                 golden_case(scheme, case, failures)
     log("golden", cases=counts, total=sum(counts.values()),
@@ -1146,7 +1644,9 @@ def main() -> int:
     if failures or counts != {"dpf chacha": 6, "dpf aes": 2,
                               "dcf chacha": 6, "dcf aes": 1,
                               "half_tree chacha": 4, "half_tree aes": 1,
-                              "vdpf chacha": 4, "vdpf aes": 1}:
+                              "vdpf chacha": 4, "vdpf aes": 1,
+                              "grotto chacha": 4, "grotto aes": 1,
+                              "vdmpf chacha": 4, "vdmpf aes": 1}:
         return 1
 
     # 5. main paths at full size ------------------------------------------
@@ -1459,6 +1959,23 @@ def main() -> int:
     for v in aes_main.values():  # each kernel's count from its own path
         launches.update({k: c for k, c in v["launches"].items()
                          if k.endswith("_aes") and k not in launches})
+
+    # 5e-5f. The Grotto DCF (ChaCha, then AES) and the VDMPF (ChaCha with
+    # BLAKE3 under the default IV, then SHA-256; AES with SHA-256).
+    grotto_main, vdmpf_main = {}, {}
+    for tag, prg2 in (("chacha", CH[2]), ("aes", AES[2])):
+        ok, grotto_main[tag] = grotto_path(prg2, "_aes" if tag == "aes"
+                                           else "", dev, rng)
+        if not ok:
+            return 1
+    for tag, prg2, name, hashes in (
+            ("blake3", CH[2], "blake3", Blake3(DEFAULT_HASH_IV)),
+            ("sha256", CH[2], "sha256", Sha256(VDPF_SHA_KEY)),
+            ("aes", AES[2], "sha256", Sha256(VDPF_SHA_KEY))):
+        ok, vdmpf_main[tag] = vdmpf_path(prg2, "_aes" if tag == "aes" else "",
+                                         name, hashes, dev)
+        if not ok:
+            return 1
 
     # 6. timing at the main-path shapes -----------------------------------
     def expanders(scheme, S, P):
@@ -1889,6 +2406,20 @@ def main() -> int:
         eval_all_ms=at[2], main_path_s=av["main_s"],
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
+
+    # The Grotto DCF and the VDMPF; the route kernel's row.
+    power_limit = smi.split(",")[-1].strip()
+    for G in grotto_main.values():
+        grotto_timing(G, power_limit, kind)
+    for V in vdmpf_main.values():
+        vdmpf_timing(V, power_limit, kind)
+    frow = feistel_row(vdmpf_main["blake3"], bound,
+                       vdmpf_main["blake3"]["launches"]["feistel_route"])
+    if frow["max_abs_err"]:
+        log("kernels_vs_plain", kernel="feistel_route",
+            max_abs_err=frow["max_abs_err"])
+        return 1
+    rows.append(frow)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

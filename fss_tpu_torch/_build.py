@@ -11,8 +11,8 @@ Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when
 that is not 0 and counts the launch in :data:`launches`, by kernel: a
 source with one kernel counts under its own name (with ``_aes`` appended
-when it ran the AES-128-MMO PRG), and ``blake3.cu`` and ``sha256.cu``
-under one name per entry point (``KERNELS``).
+when it ran the AES-128-MMO PRG), and ``blake3.cu``, ``sha256.cu`` and
+``feistel.cu`` under one name per entry point (``KERNELS``).
 
 The PRG reaches a kernel as one host pointer to an ``fss::PrgArg``
 (``csrc/prg.cuh``), built by :func:`prg_arg` from a ``ChaCha`` or
@@ -40,14 +40,16 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "fss_tpu_torch"
 SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
            "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all", "blake3",
-           "sha256", "vdpf_eval")
+           "sha256", "vdpf_eval", "feistel")
 HEADERS = ("chacha.cuh", "aes.cuh", "prg.cuh", "group.cuh", "dcf_acc.cuh",
            "dpf_walk.cuh", "subtree.cuh", "parties.cuh", "blake3.cuh",
            "sha256.cuh", "ring.cuh")  # digested by every .so
-PRG_SOURCES = tuple(s for s in SOURCES if s not in ("blake3", "sha256"))
+PRG_SOURCES = tuple(s for s in SOURCES
+                    if s not in ("blake3", "sha256", "feistel"))
 KERNELS = (*PRG_SOURCES, *(f"{s}_aes" for s in PRG_SOURCES),
            "blake3_xor_hash", "blake3_hash64", "blake3_chain",
-           "sha256_xor_hash", "sha256_hash64", "sha256_chain")
+           "sha256_xor_hash", "sha256_hash64", "sha256_chain",
+           "feistel_route", "feistel_permute")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -195,3 +197,4 @@ P = ctypes.c_void_p
 I64 = ctypes.c_int64
 INT = ctypes.c_int
 U32 = ctypes.c_uint32
+U64 = ctypes.c_uint64

@@ -1,9 +1,9 @@
-"""High-level DPF, DCF, Half-Tree DPF and VDPF API on PyTorch tensors.
+"""High-level FSS API on PyTorch tensors.
 
-Counterpart of ``fss_tpu.api`` for the DPF, DCF, Half-Tree DPF and
-verifiable DPF schemes (``Dpf``, ``PackedDpfKeys``, ``Dcf``,
-``HalfTreeDpf``, ``Vdpf``, ``DEFAULT_NONCE``, ``DEFAULT_HASH_IV``), each
-with the ChaCha PRG (the default) or AES-128-MMO (``prg.aes.AesMmo``).
+Counterpart of ``fss_tpu.api`` for its six schemes (``Dpf``,
+``PackedDpfKeys``, ``Dcf``, ``HalfTreeDpf``, ``GrottoDcf``, ``Vdpf``,
+``Vdmpf``, ``DEFAULT_NONCE``, ``DEFAULT_HASH_IV``), each with the ChaCha
+PRG (the default) or AES-128-MMO (``prg.aes.AesMmo``).
 Entry points run on the card unless the caller asks for the CPU:
 ``device="cuda"`` is the default, and inputs given as ints, lists, numpy
 arrays or tensors are moved to the scheme's ``device``. On a CUDA device
@@ -30,6 +30,10 @@ from fss_tpu_torch.ops import (dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda,
                                vdpf_cuda)
 from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.prp.feistel import ceil_log2
+from fss_tpu_torch.schemes import cuckoo as _cuckoo
+from fss_tpu_torch.schemes import grotto_dcf as _grotto
+from fss_tpu_torch.schemes import vdmpf as _vdmpf
 from fss_tpu_torch.schemes import vdpf as _vdpf
 
 DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
@@ -278,6 +282,14 @@ class Vdpf(_TreeScheme):
             hashes = Blake3(DEFAULT_HASH_IV if hash_iv is None else hash_iv)
         vdpf_cuda.hash_kind(hashes, self.device)  # others: the CPU only
         self.hashes = hashes
+        self._prp = None  # the PRP of the last key evaluated
+
+    def _key_prp(self, key: _vdmpf.VdmpfKey):
+        """The key's PRP: kept from the last call while sigma is the
+        same (both parties' keys share it), else made anew."""
+        if self._prp is None or self._prp.sigma != bytes(key.sigma):
+            self._prp = _vdmpf.key_prp(key, self.in_bits, self.kappa)
+        return self._prp
 
     def _gen_keys(self, s0s, alphas, betas):
         return vdpf_cuda.gen_batch(self.prg, self.hashes, self.group,
@@ -371,3 +383,137 @@ class Vdpf(_TreeScheme):
             self.prg, self.hashes, self.group, self.in_bits, int(party),
             self._blocks(s0), self._blocks(cws), self._blocks(cs),
             self._blocks(ocw), fold)
+
+
+class GrottoDcf(_TreeScheme):
+    """Grotto DCF over F2 (the reference's grotto_dcf.cuh): the parties'
+    shares XOR to 1[alpha <= x], from a DPF key with beta = 0 over
+    ``Bytes`` and the ChaCha or AES-MMO PRG (mul=2).
+
+    Keys: cws (in_bits+1, 8) int32, the DPF's wire layout. ``preprocess``
+    expands a party's key into a ``ParityTree`` (the reference's
+    preprocessing), ``preprocess_prefix`` into a ``PrefixTable`` (the
+    packed full-domain prefix parities); ``eval`` answers point queries
+    against either, and ``eval_all`` gives every x's share. On the card
+    the leaf control bits come from the DPF EvalAll kernel's seeds
+    epilogue (``eval_all_cuda.expand_leaves``) at every in_bits.
+    """
+
+    MUL = 2
+
+    def __init__(self, in_bits: int, prg=None, device="cuda"):
+        super().__init__(in_bits, groups.Bytes(), prg, device)
+
+    def gen(self, s0s, alpha) -> torch.Tensor:
+        """One key: s0s [2, 4], alpha an int (or lanes). Returns cws
+        [in_bits+1, 8] through the DPF Gen kernel."""
+        s0s, alpha, _ = self._one(s0s, alpha, (0, 0, 0, 0))
+        return _grotto.gen(self.prg, self.in_bits, s0s, alpha)[0]
+
+    def preprocess(self, party: int, s0, cws) -> _grotto.ParityTree:
+        return _grotto.preprocess(self.prg, self.in_bits, int(party),
+                                  self._blocks(s0), self._blocks(cws))
+
+    def preprocess_prefix(self, party: int, s0, cws) -> _grotto.PrefixTable:
+        """The packed full-domain prefix table: its queries are one gather
+        each (``schemes.grotto_dcf.PrefixTable``)."""
+        return _grotto.build_prefix_table(self.eval_all(party, s0, cws),
+                                          int(party))
+
+    def eval(self, pt, xs) -> torch.Tensor:
+        """Shares of 1[alpha <= x], int32 0/1 [B] ([] for a single int x),
+        against a PrefixTable (xs below 2^32) or a ParityTree."""
+        if isinstance(pt, _grotto.PrefixTable):
+            x = blk.words(np.asarray(xs, dtype=np.uint64).reshape(-1)
+                          if not isinstance(xs, torch.Tensor) else xs,
+                          self.device)
+            y = _grotto.eval_prefix(pt, x)
+        else:
+            x = blk.pack_inputs(xs, self.in_bits, self.device).reshape(-1, 4)
+            y = _grotto.eval_points(pt, x)
+        return y[0] if isinstance(xs, (int, np.integer)) else y
+
+    def eval_all(self, party: int, s0, cws) -> torch.Tensor:
+        """Every x's share, int32 0/1 [2^in_bits]."""
+        return _grotto.eval_all(self.prg, self.in_bits, int(party),
+                                self._blocks(s0), self._blocks(cws))
+
+
+class Vdmpf(_TreeScheme):
+    """Verifiable multi-point function (the reference's vdmpf.cuh): t >= 30
+    points Cuckoo-hashed into m buckets, each with an inner VDPF (ChaCha
+    or AES-MMO, mul=2) over 2^bucket_bits, keyed with BLAKE3 or SHA-256.
+
+    ``max_points`` sizes the bucket array (>= 30); ``bucket_bits`` bounds
+    the inner domain (by default the smallest that fits the largest
+    runtime bucket at t = 30). Keys are ``schemes.vdmpf.VdmpfKey``. On the
+    card, routing is one launch of ``csrc/feistel.cu``, the inner evals
+    one of the fused VDPF kernel, and the folds run the hash kernels.
+    """
+
+    MUL = 2
+
+    def __init__(self, in_bits: int, max_points: int = 30,
+                 bucket_bits: int | None = None, group=None, prg=None,
+                 hash_iv=None, hashes=None, kappa: int = _vdmpf.KAPPA,
+                 ch_lambda: int = _vdmpf.CH_LAMBDA, device="cuda"):
+        super().__init__(in_bits, group, prg, device)
+        self.max_points = max_points
+        self.kappa = kappa
+        self.ch_lambda = ch_lambda
+        self.m = _cuckoo.ch_bucket(max_points, ch_lambda)
+        if bucket_bits is None:
+            m_min = _cuckoo.ch_bucket(30, ch_lambda)
+            bucket_bits = max(1, ceil_log2(
+                ((1 << in_bits) * kappa + m_min - 1) // m_min + 1))
+        self.bucket_bits = bucket_bits
+        if hashes is None:
+            hashes = Blake3(DEFAULT_HASH_IV if hash_iv is None else hash_iv)
+        vdpf_cuda.hash_kind(hashes, self.device)  # others: the CPU only
+        self.hashes = hashes
+        self._prp = None  # the PRP of the last key evaluated
+
+    def _key_prp(self, key: _vdmpf.VdmpfKey):
+        """The key's PRP: kept from the last call while sigma is the
+        same (both parties' keys share it), else made anew."""
+        if self._prp is None or self._prp.sigma != bytes(key.sigma):
+            self._prp = _vdmpf.key_prp(key, self.in_bits, self.kappa)
+        return self._prp
+
+    def gen(self, sigma, s0s, alphas, betas, ch_retry: int = 1000):
+        """sigma 16 bytes; s0s [m, 2, 4]; alphas t ints (t >= 30); betas
+        [t, 4]. Returns (key0, key1, fail)."""
+        return _vdmpf.gen(self.prg, self.hashes, self.group, self.in_bits,
+                          self.bucket_bits, self.max_points, sigma,
+                          self._blocks(s0s), [int(a) for a in alphas],
+                          self._blocks(betas), self.kappa, self.ch_lambda,
+                          ch_retry)
+
+    def gen_retry(self, rng, alphas, betas, max_tries: int = 16):
+        """Draw sigma (16 bytes) and then s0s [m, 2, 4] from the numpy
+        Generator ``rng`` until Gen succeeds: the JAX package's draws, so
+        the same ``rng`` gives the same keys. Returns (key0, key1)."""
+        for _ in range(max_tries):
+            sigma = bytes(rng.integers(0, 256, size=16, dtype=np.uint8))
+            s0s = rng.integers(0, 2**32, size=(self.m, 2, 4))
+            k0, k1, fail = self.gen(sigma, s0s, alphas, betas)
+            if not fail:
+                return k0, k1
+        raise RuntimeError("vdmpf gen retry budget exhausted")
+
+    def batch_eval(self, party: int, key: _vdmpf.VdmpfKey, xs,
+                   fold: str = "tree"):
+        """(ys [eta, 4], pi [4, 4]) at xs: [eta] words for in_bits <= 32,
+        [eta, 4] lanes (or ints) above. ``fold``: "tree" (a Merkle fold,
+        one batched H' a level) or "reference" (the reference's chains,
+        byte-compatible with vdmpf.cuh:242-268); both parties must pick
+        the same one. A point at or above 2^in_bits raises ValueError."""
+        return _vdmpf.batch_eval(self.prg, self.hashes, self.group,
+                                 self.in_bits, self.bucket_bits, int(party),
+                                 key, self._inputs(xs), self.kappa, fold,
+                                 self._key_prp(key))
+
+    @staticmethod
+    def verify(pi0, pi1) -> bool:
+        """64-byte proof equality."""
+        return _vdmpf.verify(blk.words(pi0).cpu(), blk.words(pi1).cpu())

@@ -10,8 +10,13 @@ both directions, with the ChaCha PRG (``nonce``, ``rounds``) or AES-128-MMO
 ``unroll`` left behind: every backend computes the same bits. Half-Tree keys (cws [B, in_bits, 8], ocw [B, 4]) cross as two
 arrays through :func:`to_torch` and :func:`to_numpy`, and VDPF keys (cws
 [B, in_bits, 8], cs [B, 4, 4], ocw [B, 4]) as three. Hash keys and IVs
-cross as plain ints. It
-imports nothing of the JAX package: a caller hands it arrays and values.
+cross as plain ints. Grotto DCF and VDMPF configurations cross the same
+way; a VDMPF key crosses as its sigma bytes, m_rt and b_size_rt as ints
+and its four arrays, a Grotto ``ParityTree`` as its levels and a
+``PrefixTable`` as its words, each with its party. It
+imports nothing of the JAX package: a caller hands it arrays and values,
+or objects with the same field names as the JAX package's (read by
+attribute), and gets back tuples in those objects' field order.
 """
 
 from __future__ import annotations
@@ -21,11 +26,14 @@ import torch
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, PackedDpfKeys, Vdpf
+from fss_tpu_torch.api import (Dcf, Dpf, GrottoDcf, HalfTreeDpf,
+                               PackedDpfKeys, Vdmpf, Vdpf)
 from fss_tpu_torch.hash import Blake3, Sha256
 from fss_tpu_torch.ops.ht_cuda import hash_words
 from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.schemes.grotto_dcf import ParityTree, PrefixTable
+from fss_tpu_torch.schemes.vdmpf import VdmpfKey
 
 LANES = 128  # key lanes per row of the JAX package's packed planes
 
@@ -132,9 +140,82 @@ def vdpf_config(in_bits: int, group, prg, hashes) -> dict:
     raise TypeError(f"no BLAKE3 iv or SHA-256 key on {type(hashes).__name__}")
 
 
+
+
+def _hashes(cfg: dict):
+    return (Blake3(cfg["hash_iv"]) if cfg["hash"] == "blake3"
+            else Sha256(cfg["hash_key"]))
+
+
 def vdpf_from_config(cfg: dict, device="cuda") -> Vdpf:
     """The port's Vdpf for a configuration made by :func:`vdpf_config`."""
-    hashes = (Blake3(cfg["hash_iv"]) if cfg["hash"] == "blake3"
-              else Sha256(cfg["hash_key"]))
-    return Vdpf(cfg["in_bits"], hashes=hashes, device=device,
+    return Vdpf(cfg["in_bits"], hashes=_hashes(cfg), device=device,
                 **_scheme_args(cfg, 2))
+
+
+def grotto_config(in_bits: int, prg) -> dict:
+    """A Grotto DCF configuration as plain values: the domain and the PRG
+    (its group is always ``Bytes``)."""
+    return dpf_config(in_bits, groups.Bytes(), prg)
+
+
+def grotto_from_config(cfg: dict, device="cuda") -> GrottoDcf:
+    """The port's GrottoDcf for a configuration made by
+    :func:`grotto_config`."""
+    return GrottoDcf(cfg["in_bits"], prg=_scheme_args(cfg, 2)["prg"],
+                     device=device)
+
+
+def vdmpf_config(in_bits: int, group, prg, hashes, max_points: int,
+                 bucket_bits: int, kappa: int = 3,
+                 ch_lambda: int = 80) -> dict:
+    """A VDMPF configuration as plain values: :func:`vdpf_config`'s fields
+    and the bucket array's parameters."""
+    return {**vdpf_config(in_bits, group, prg, hashes),
+            "max_points": int(max_points), "bucket_bits": int(bucket_bits),
+            "kappa": int(kappa), "ch_lambda": int(ch_lambda)}
+
+
+def vdmpf_from_config(cfg: dict, device="cuda") -> Vdmpf:
+    """The port's Vdmpf for a configuration made by :func:`vdmpf_config`."""
+    return Vdmpf(cfg["in_bits"], max_points=cfg["max_points"],
+                 bucket_bits=cfg["bucket_bits"], hashes=_hashes(cfg),
+                 kappa=cfg["kappa"], ch_lambda=cfg["ch_lambda"],
+                 device=device, **_scheme_args(cfg, 2))
+
+
+def vdmpf_key_from_jax(key, device="cuda") -> VdmpfKey:
+    """A JAX package's VdmpfKey -> the port's: sigma's bytes, m_rt and
+    b_size_rt as ints, and the four arrays as int32 tensors."""
+    return VdmpfKey(bytes(key.sigma), int(key.m_rt), int(key.b_size_rt),
+                    *(to_torch(getattr(key, f), device)
+                      for f in ("s0", "cws", "cs", "ocw")))
+
+
+def vdmpf_key_to_jax(key: VdmpfKey) -> tuple:
+    """The port's VdmpfKey -> (sigma, m_rt, b_size_rt, s0, cws, cs, ocw),
+    the JAX package's VdmpfKey fields, the arrays as uint32."""
+    return (bytes(key.sigma), int(key.m_rt), int(key.b_size_rt),
+            *(to_numpy(t) for t in (key.s0, key.cws, key.cs, key.ocw)))
+
+
+def parity_tree_from_jax(pt, device="cuda") -> ParityTree:
+    """A JAX package's ParityTree (uint32 0/1 levels) -> the port's."""
+    return ParityTree(tuple(to_torch(level, device) for level in pt.levels),
+                      int(pt.party))
+
+
+def parity_tree_to_jax(pt: ParityTree) -> tuple:
+    """The port's ParityTree -> (levels as uint32 arrays, party)."""
+    return tuple(to_numpy(level) for level in pt.levels), int(pt.party)
+
+
+def prefix_table_from_jax(table, device="cuda") -> PrefixTable:
+    """A JAX package's PrefixTable (uint32 words) -> the port's."""
+    return PrefixTable(to_torch(table.words, device), int(table.party),
+                       int(table.in_bits))
+
+
+def prefix_table_to_jax(table: PrefixTable) -> tuple:
+    """The port's PrefixTable -> (words as uint32, party, in_bits)."""
+    return to_numpy(table.words), int(table.party), int(table.in_bits)
