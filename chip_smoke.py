@@ -30,8 +30,11 @@ Phases, each printing one line (any failure exits non-zero):
      2^32, 128-bit points and warps that mix them; the Feistel route
      kernel at 8-64 bits with 53 and 74 buckets (points below n and
      above it, which are not walked), its PRP alone on a domain of
-     2^20 + 1 and on 4-lane points, and its permutation table
-     (``feistel_checks``);
+     2^20 + 1 and on 4-lane points, its permutation table, and the cases
+     of its slices and tabulated round functions: 1, 31, 33 points, one
+     thread block's values plus one, kappa 1 and 4, a domain just above a
+     power of two, every point equal, points above n strewn
+     (``feistel_cases``, ``feistel_checks``);
   4. golden: the reference's DPF, DCF, Half-Tree, VDPF, Grotto and VDMPF
      vectors, ChaCha and AES, through Dpf("cuda"), Dcf("cuda"),
      HalfTreeDpf("cuda"), Vdpf("cuda"), GrottoDcf("cuda") and
@@ -363,6 +366,11 @@ def max_abs_err(a, b) -> int:
     return int((ua - ub).abs().max()) if a.numel() else 0
 
 
+def to_cpu(t):
+    """A tensor, or a tuple of them, on the CPU."""
+    return tuple(x.cpu() for x in t) if isinstance(t, tuple) else t.cpu()
+
+
 def same(a, b) -> bool:
     if isinstance(a, tuple):
         return all(same(x, y) for x, y in zip(a, b))
@@ -666,10 +674,21 @@ def case_prg(case, mul):
 # The route kernel's checks: indices as words (to 29 bits) and as lanes,
 # halves of up to 32 bits and above (33 and 64 bits: the 4-lane points),
 # and 53 and 74 buckets; a PRP whose walk takes many passes (a domain of
-# 2^20 + 1 in a 2^22 network) and one of 4-lane points; the table.
+# 2^20 + 1 in a 2^22 network) and one of 4-lane points; the table. Then
+# the cases that CTAs walking slices of the values or tabulating the
+# round functions can get wrong (``feistel_cases``):
+# counts of 1, 31 and 33 points, one CTA's threads plus one value, kappa
+# 1 and 4 (2^16 points: more values than the grid has threads), a domain
+# just above a power of two (3 n = 2^16 + 2: four passes a value, lanes
+# landing many passes apart), every point equal, points at or above n
+# strewn among 2^15 points, and an untabulated walk (half 12) whose CTAs'
+# slices pass their threads.
 ROUTE_CHECK_BITS = (8, 16, 22, 23, 29, 30, 33, 64)
 WALK_CHECK_DOMAIN = (1 << 20) + 1
 TABLE_CHECK_DOMAIN = 3 << 8
+REFILL_CHECK_COUNTS = (1, 31, 33)
+NEAR_POW2_N = 21846  # 3 n = 2^16 + 2
+WALK_SLICE_BITS = 22  # half 12: AES passes, 98,304 values
 # The JAX bench's shapes (bench.py:679-735): a 20-bit Grotto key at alpha
 # 123456 queried at 2^20 points, EvalAll at 20 (alpha 500) and 24 bits; a
 # 16-bit VDMPF, t = 30, 2^14 points plus the alphas.
@@ -681,6 +700,10 @@ GROTTO_EA_ALPHA = 500
 VDMPF_BITS = 16
 VDMPF_T = 30
 VDMPF_LOG2_POINTS = 14
+# The route kernel's lookups an AES block (csrc/feistel.cu): the last
+# round computes the words the round function keeps, word 0 for a right
+# half of up to 32 bits (160 - 12), words 0 and 1 above (160 - 8).
+FEISTEL_LDS = {"narrow": AES_LDS - 12, "wide": AES_LDS - 8}
 FEISTEL_REPLACES = ("XLA: fss_tpu/prp/feistel.py:151 (Aes128Feistel.permu; "
                     "permu_lanes :201) and the Locate of "
                     "fss_tpu/schemes/vdmpf.py:118 (route)")
@@ -690,49 +713,102 @@ def _sigma(rng) -> bytes:
     return bytes(rng.integers(0, 256, size=16, dtype=np.uint8))
 
 
-def feistel_checks(dev, rng, sample: int) -> list:
-    """Phase 3: the route kernel against route_plain, byte-exact, at every
-    ROUTE_CHECK_BITS on ``sample`` points below n and 64 at or above it
-    (outside the function: not walked, bucket -1); the PRP of points on
-    WALK_CHECK_DOMAIN and of 4-lane points; the permutation table at
-    TABLE_CHECK_DOMAIN against the plain table and the host oracle.
-    Returns [(name, ok)]."""
+def feistel_cases(dev, rng, sample: int) -> list:
+    """The route kernel's checks (phase 3): [(name, kernel, plain, ok)],
+    ``kernel()`` a call of the wrapper, ``plain()`` its plain version's on
+    the same inputs copied to the CPU (its loops of small ops run faster
+    there than on the card), ``ok(got)`` what else the output must show.
+    Routes at
+    every ROUTE_CHECK_BITS on ``sample`` points below n and 64 at or above
+    it (outside the function: not walked, bucket -1) with 53 and 74
+    buckets; the PRP of points on WALK_CHECK_DOMAIN and of 4-lane points;
+    the permutation table at TABLE_CHECK_DOMAIN (also against the host
+    oracle and as a permutation); then the cases named above
+    REFILL_CHECK_COUNTS."""
     from fss_tpu_torch import block as blk
     from fss_tpu_torch.ops import feistel_cuda
     from fss_tpu_torch.prp.feistel import Aes128Feistel
-    checks = []
-    for bits in ROUTE_CHECK_BITS:
-        n, kappa = 1 << bits, 3
+    cases = []
+
+    def lost_ones(got):
+        return bool((got[0][-64:] == -1).any())
+
+    def route(name, n, kappa, vals, m_rt, ok=lambda got: True, lanes=1):
         prp = Aes128Feistel(_sigma(rng), n * kappa)
-        vals = [int(v) % n for v in rng.integers(0, 2**63, size=sample)]
-        vals += [n + int(v) % n for v in rng.integers(0, 2**63, size=64)]
         xs = (blk.words(np.asarray(vals, dtype=np.uint64), dev)
               if 2 * n <= 2**32 else blk.pack_inputs(vals, 128, dev))
+        args = (prp, n, kappa, -(-n * kappa // m_rt), xs, lanes)
+        cases.append((name, lambda: feistel_cuda.route(*args),
+                      lambda: feistel_cuda.route_plain(*args[:4], xs.cpu(),
+                                                       lanes), ok))
+
+    def below(n, count):
+        return [int(v) % n for v in rng.integers(0, 2**63, size=count)]
+
+    for bits in ROUTE_CHECK_BITS:
+        n = 1 << bits
+        vals = below(n, sample) + [n + v for v in below(n, 64)]
         for m_rt in (53, 74):
-            args = (prp, n, kappa, -(-n * kappa // m_rt), xs,
-                    1 if bits <= 29 else 4)
-            got = feistel_cuda.route(*args)
-            ok = same(got, feistel_cuda.route_plain(*args))
-            ok &= bool((got[0][-64:] == -1).any())
-            checks.append((f"feistel_route n={bits} m_rt={m_rt}", ok))
+            route(f"feistel_route n={bits} m_rt={m_rt}", n, 3, vals, m_rt,
+                  lost_ones, 1 if bits <= 29 else 4)
     prp = Aes128Feistel(_sigma(rng), WALK_CHECK_DOMAIN)
     xs = blk.words(rng.integers(0, prp.domain, size=sample,
                                 dtype=np.uint64), dev)
-    checks.append((f"feistel_permute domain={prp.domain}", same(
-        feistel_cuda.permute(prp, xs), feistel_cuda.permute_plain(prp, xs))))
+    cases.append((f"feistel_permute domain={prp.domain}",
+                  lambda: feistel_cuda.permute(prp, xs),
+                  lambda: feistel_cuda.permute_plain(prp, xs.cpu()),
+                  lambda got: True))
     wide = Aes128Feistel(_sigma(rng), 3 << 64)
     x4 = blk.pack_inputs([int(v) % wide.domain for v in rng.integers(
         0, 2**63, size=sample)], 128, dev)
-    checks.append(("feistel_permute domain=3*2^64 lanes", same(
-        feistel_cuda.permute(wide, x4), feistel_cuda.permute_plain(wide,
-                                                                   x4))))
+    cases.append(("feistel_permute domain=3*2^64 lanes",
+                  lambda: feistel_cuda.permute(wide, x4),
+                  lambda: feistel_cuda.permute_plain(wide, x4.cpu()),
+                  lambda got: True))
     small = Aes128Feistel(_sigma(rng), TABLE_CHECK_DOMAIN)
-    table = small.permutation_table(dev).cpu()
-    checks.append((f"feistel table domain={small.domain}", torch.equal(
-        table, feistel_cuda.table_plain(small, "cpu"))
-        and table.tolist() == [small.permu_host(x)
-                               for x in range(small.domain)]
-        and sorted(table.tolist()) == list(range(small.domain))))
+    cases.append((
+        f"feistel table domain={small.domain}",
+        lambda: small.permutation_table(dev),
+        lambda: feistel_cuda.table_plain(small, "cpu"),
+        lambda got: (got.tolist() == [small.permu_host(x)
+                                      for x in range(small.domain)]
+                     and sorted(got.tolist()) == list(range(small.domain)))))
+
+    n = 1 << 16
+    for count in REFILL_CHECK_COUNTS:
+        route(f"feistel_route count={count}", n, 3, below(n, count), 53)
+    count = feistel_cuda.plan(Aes128Feistel(_sigma(rng), n), 1, dev)[1] + 1
+    route(f"feistel_route kappa=1 count={count}", n, 1, below(n, count), 53)
+    for kappa in (1, 4):
+        route(f"feistel_route kappa={kappa} 2^16 points", n, kappa,
+              below(n, 1 << 16), 53)
+    route(f"feistel_route n=2^{WALK_SLICE_BITS} 2^15 points (AES walk, "
+          "slices beyond the grid's threads)", 1 << WALK_SLICE_BITS, 3,
+          below(1 << WALK_SLICE_BITS, 1 << 15), 53)
+    route(f"feistel_route n={NEAR_POW2_N} (3 n = 2^16 + 2)", NEAR_POW2_N, 3,
+          below(NEAR_POW2_N, 1 << 14), 53)
+    route("feistel_route every point equal", n, 3,
+          [int(rng.integers(0, n))] * (1 << 14), 53)
+    vals = below(n, 1 << 15)
+    for i in np.flatnonzero(rng.random(len(vals)) < 0.1):
+        vals[i] += n * int(rng.integers(1, 4))
+    # x + n k at or above the domain 3 n: bucket -1, index all ones
+    lost = torch.as_tensor(np.asarray(vals)[:, None] + n * np.arange(3)
+                           >= 3 * n, device=dev)
+    route("feistel_route points >= n strewn", n, 3, vals, 53,
+          lambda got: bool((got[0][lost] == -1).all()
+                           and (got[1][lost] == -1).all()
+                           and (got[0][~lost] >= 0).all()))
+    return cases
+
+
+def feistel_checks(dev, rng, sample: int) -> list:
+    """Phase 3: each of ``feistel_cases`` byte-exact against its plain
+    version, and what else it must show. Returns [(name, ok)]."""
+    checks = []
+    for name, kernel, plain, ok in feistel_cases(dev, rng, sample):
+        got = kernel()
+        checks.append((name, same(to_cpu(got), plain()) and ok(got)))
     return checks
 
 
@@ -969,9 +1045,14 @@ def feistel_row(V, bound, launches: int) -> dict:
     checks and allocations), queued behind a sleep (``queued_ms``: the
     host takes longer to launch one than the kernel to run);
     ``wrapper_ms`` those of ``feistel_cuda.route`` as a caller sees them.
-    The bound counts the AES blocks of this run's cycle walks (4 a Feistel
-    pass) at AES_ALU ALU instructions and AES_LDS lookups each, and x in,
-    bucket and index out."""
+    The bound is the function's: x in, bucket and index out, and the
+    least AES work, each round function over every right half once (4 x
+    2^half blocks, ``FEISTEL_LDS`` lookups each, ALU instructions in
+    AES_ALU's proportion) and one lookup a Feistel round of this run's
+    cycle walks, where that is less than AES in every pass of the walks
+    (4 blocks a pass), else the latter. ``design_bound_ms`` counts the
+    work the launch does where it tabulates (``feistel_cuda.plan``):
+    each CTA's own table; ``walk_bound_ms`` the AES walk's."""
     from fss_tpu_torch import block as blk
     from fss_tpu_torch.ops import feistel_cuda
     from fss_tpu_torch.prp.feistel import Aes128Feistel
@@ -992,11 +1073,23 @@ def feistel_row(V, bound, launches: int) -> dict:
     vals[..., 0] = blk.u64(xs)[:, None] + n * torch.arange(
         kappa, device=xs.device)
     _, passes = feistel_cuda.walk_plain(prp, vals)
-    blocks = 4 * passes
     entries = xs.numel() * kappa
-    bound_ms, bound_by = bound(blocks * AES_ALU,
-                               xs.numel() * 4 + entries * (4 + 4),
-                               blocks * AES_LDS)
+    nbytes = xs.numel() * 4 + entries * (4 + 4)
+    lds = FEISTEL_LDS["narrow" if prp.half <= 32 else "wide"]
+
+    def aes_bound(blocks, lookups=0):
+        return bound(blocks * AES_ALU * lds / AES_LDS + 2 * lookups, nbytes,
+                     blocks * lds + lookups)
+
+    walk_blocks, table_blocks = 4 * passes, 4 << prp.half
+    plan = feistel_cuda.plan(prp, entries, xs.device)
+    if table_blocks < walk_blocks:
+        bound_ms, bound_by = aes_bound(table_blocks, 4 * passes)
+    else:
+        bound_ms, bound_by = aes_bound(walk_blocks)
+    design_bound_ms = (aes_bound(plan[0] * table_blocks, 4 * passes)[0]
+                       if plan[3] else aes_bound(walk_blocks)[0])
+    walk_bound_ms = aes_bound(walk_blocks)[0]
     return {"name": "feistel_route", "route": "cuda",
             "source": "fss_tpu_torch/csrc/feistel.cu",
             "replaces": FEISTEL_REPLACES, "status": "ported",
@@ -1004,7 +1097,11 @@ def feistel_row(V, bound, launches: int) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "wrapper_ms": wrapper_ms, "walk_passes": passes,
-            "values": entries}
+            "values": entries, "plan": dict(zip(
+                ("ctas", "slice", "threads", "tabulated"), plan)),
+            "table_aes_blocks": table_blocks, "lookups_a_block": lds,
+            "design_bound_ms": design_bound_ms,
+            "walk_bound_ms": walk_bound_ms}
 
 
 def vdmpf_timing(V, power_limit: str, kind: str) -> None:

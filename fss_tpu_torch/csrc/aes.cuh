@@ -173,10 +173,14 @@ __device__ __forceinline__ uint32_t aes_s_word(uint32_t a, uint32_t b,
 
 // out = AES_rk(seed) ^ seed over the seed's 4 lanes; rk: the 44 big-endian
 // round-key words, words 0-3 and 40-43 byte-swapped. `out` may alias `seed`.
-template <class T>
+// Only the first kOut words are computed: the last round's lookups of the
+// others are skipped (4 lookups a word; the Feistel PRP's wide halves keep
+// two).
+template <class T, int kOut = 4>
 __device__ __forceinline__ void aes_mmo(const uint32_t (&rk)[44],
                                         const uint32_t seed[4],
-                                        uint32_t out[4]) {
+                                        uint32_t out[kOut]) {
+  static_assert(kOut >= 1 && kOut <= 4, "aes_mmo: 1 to 4 output words");
   const uint32_t off0 = T::offset(0), off2 = T::offset(1);
   const uint32_t x0 = seed[0], x1 = seed[1], x2 = seed[2], x3 = seed[3];
   uint32_t s0 = x0 ^ rk[0], s1 = x1 ^ rk[1], s2 = x2 ^ rk[2], s3 = x3 ^ rk[3];
@@ -194,9 +198,12 @@ __device__ __forceinline__ void aes_mmo(const uint32_t (&rk)[44],
     s0 = t0; s1 = t1; s2 = t2; s3 = t3;
   }
   out[0] = aes_s_word<T>(s0, s1, s2, s3, rk[40], x0, off0);
-  out[1] = aes_s_word<T>(s1, s2, s3, s0, rk[41], x1, off0);
-  out[2] = aes_s_word<T>(s2, s3, s0, s1, rk[42], x2, off0);
-  out[3] = aes_s_word<T>(s3, s0, s1, s2, rk[43], x3, off0);
+  if constexpr (kOut > 1)
+    out[1] = aes_s_word<T>(s1, s2, s3, s0, rk[41], x1, off0);
+  if constexpr (kOut > 2)
+    out[2] = aes_s_word<T>(s2, s3, s0, s1, rk[42], x2, off0);
+  if constexpr (kOut > 3)
+    out[3] = aes_s_word<T>(s3, s0, s1, s2, rk[43], x3, off0);
 }
 
 }  // namespace fss

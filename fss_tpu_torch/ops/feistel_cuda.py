@@ -3,10 +3,14 @@ CUDA kernel ``csrc/feistel.cu``, and their plain PyTorch versions.
 
 The kernel replaces XLA glue of the JAX package, no Pallas kernel:
 ``fss_tpu.prp.feistel.Aes128Feistel.permu`` / ``permu_lanes`` and the
-Locate part of ``fss_tpu.schemes.vdmpf.route``. One thread a point runs
-every hash function of that point: y = PRP(x + n k) over the domain
-n kappa, cycle-walked in the thread, bucket = y // b_rt, index = y % b_rt.
-The reference's BatchEval drops a hash function whose (bucket, index) an
+Locate part of ``fss_tpu.schemes.vdmpf.route``. A point x has one value
+x + n k for each hash function k: y = PRP(x + n k) over the domain
+n kappa, cycle-walked, bucket = y // b_rt, index = y % b_rt. The kernel
+walks one value a thread, a thread block a contiguous slice of the
+values; where a Feistel half has at most 10 bits and the values are many
+enough, each thread block first tabulates the four AES round functions
+over every half (:func:`plan` gives the launch's thread blocks, slice
+and choice). The reference's BatchEval drops a hash function whose (bucket, index) an
 earlier one of the same point already has. That never happens: the kappa
 values x + n k of one point are distinct and the PRP is a bijection on
 its domain, so their (bucket, index) pairs are distinct, and no dup flag
@@ -16,13 +20,16 @@ walk need not end, so it is not walked, and it gives bucket -1 and an
 index of all ones (y of all ones), in the kernel and in the plain
 versions alike.
 
-The port permutes the routed values directly and does not tabulate: the
-JAX package gathers from a host-made table of the whole permutation (n
-kappa values, 3 * 2^16 at the bench's shape) because on a TPU a gather is
-cheaper than four AES rounds of them, while here the eta * kappa values
-themselves (3 * 2^14 there) cost fewer AES blocks than the table, and both
-move the same bytes, the table being the permutation. :func:`table` is the
-whole permutation all the same, for ``Aes128Feistel.permutation_table``.
+The port permutes the routed values directly and does not tabulate the
+permutation: the JAX package gathers from a host-made table of the whole
+permutation (n kappa values, 3 * 2^16 at the bench's shape) because on a
+TPU a gather is cheaper than four AES rounds of them, while here the
+eta * kappa values themselves (3 * 2^14 there) take fewer passes than
+the table, and both move the same bytes, the table being the
+permutation. The round functions' table is another thing: 4 * 2^half
+entries (2,048 at the bench), built in shared memory by each launch.
+:func:`table` is the whole permutation all the same, for
+``Aes128Feistel.permutation_table``.
 
 Dispatch is by the tensors' device only: CUDA tensors go to the kernel (a
 failing build or launch raises), CPU tensors to the plain versions
@@ -34,6 +41,8 @@ values still outside the domain. Values cross as int32 words ([N], below
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -230,6 +239,20 @@ def permute(prp, xs: torch.Tensor) -> torch.Tensor:
         return permute_plain(prp, xs)
     xs = _aligned(xs)
     return _permute(prp, xs, xs.shape[0], dev, 4 if xs.dim() == 2 else 1)
+
+
+def plan(prp, total: int, device) -> tuple:
+    """The kernel's plan for ``total`` values of ``prp`` on the CUDA
+    ``device``: (CTAs, values a CTA's slice, threads a CTA, 1 if the round
+    functions are tabulated, else 0)."""
+    fn = _build.function("feistel", "fss_feistel_plan", (
+        _build.I64, _build.U64, _build.U64, _build.INT, _build.P))
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(torch.device(device)):
+        rc = fn(total, *_halves(prp.domain), prp.half, out)
+    if rc != 0:
+        raise RuntimeError(f"fss_feistel_plan failed: CUDA error {rc}")
+    return tuple(out)
 
 
 def table(prp, device) -> torch.Tensor:

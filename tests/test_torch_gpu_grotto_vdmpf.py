@@ -80,6 +80,62 @@ def test_route_kernel_matches_plain(in_bits, cuda):
         assert (got[0][:-64] >= 0).all() and (got[0][-64:] == -1).any()
 
 
+# The cases that CTAs walking slices of the values or tabulating the round
+# functions can get wrong: counts of 1, 31 and 33 points; one CTA's
+# threads plus one value (a second CTA with one); kappa 1 and 4 at 2^16
+# points (more values
+# than the grid has threads); a domain just above a power of two (3 n =
+# 2^16 + 2: four passes a value, lanes landing many passes apart); every
+# point equal; points at or above n strewn among the others; an
+# untabulated walk (half 12) whose CTAs' slices pass their threads.
+REFILL_CASES = ("count-1", "count-31", "count-33", "slice-plus-one",
+                "kappa-1", "kappa-4", "near-pow2", "all-equal", "strewn",
+                "walk-slices")
+
+
+@pytest.mark.parametrize("case", REFILL_CASES)
+def test_route_kernel_refill_cases(case, cuda):
+    """Bucket and index byte-exact against route_plain, one launch a
+    call; values at or above the domain give bucket -1 and an index of
+    all ones, the others a bucket."""
+    rng = np.random.default_rng(REFILL_CASES.index(case))
+    n, kappa, count = 1 << 16, 3, 1 << 14
+    if case.startswith("count-"):
+        count = int(case.split("-")[1])
+    elif case == "slice-plus-one":
+        kappa = 1
+    elif case.startswith("kappa-"):
+        kappa, count = int(case.split("-")[1]), 1 << 16
+    elif case == "near-pow2":
+        n = 21846
+    elif case == "walk-slices":  # half 12: AES passes, slices > threads
+        n, count = 1 << 22, 1 << 15
+    prp = Aes128Feistel(bytes(rng.integers(0, 256, 16, dtype=np.uint8)),
+                        n * kappa)
+    if case == "slice-plus-one":
+        count = feistel_cuda.plan(prp, 1, cuda)[1] + 1
+        assert feistel_cuda.plan(prp, count, cuda)[0] == 2
+    vals = rng.integers(0, n, size=count).astype(np.uint64)
+    if case == "all-equal":
+        vals[:] = vals[0]
+    elif case == "strewn":
+        out = rng.random(count) < 0.1
+        vals[out] += n * rng.integers(1, 4, size=int(out.sum())).astype(
+            np.uint64)
+    args = (prp, n, kappa, -(-n * kappa // 53), blk.words(vals, cuda), 1)
+    before = _build.launches["feistel_route"]
+    got = feistel_cuda.route(*args)
+    assert _build.launches["feistel_route"] == before + 1
+    want = feistel_cuda.route_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    lost = torch.as_tensor(vals[:, None].astype(np.int64)
+                           + n * np.arange(kappa) >= n * kappa,
+                           device=cuda)
+    assert (got[0][lost] == -1).all() and (got[1][lost] == -1).all()
+    assert (got[0][~lost] >= 0).all()
+    assert bool(lost.any()) == (case == "strewn")
+
+
 def test_permute_and_table_match_plain(cuda):
     """The PRP of points on a domain of 2^20 + 1, where the cycle walk
     takes many passes, and of 4-lane points on a 2^66-sized domain; the
