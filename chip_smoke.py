@@ -72,14 +72,33 @@ Phases, each printing one line (any failure exits non-zero):
      EvalAll call's launches and their times; the Grotto queries and
      EvalAll, the VDMPF's batch_eval and Gen split into their parts, and
      the route kernel alone (``grotto_timing``, ``vdmpf_timing``,
-     ``feistel_row``).
+     ``feistel_row``);
+  7. multi-device runs (``fss_tpu_torch.parallel``, ``phase7``), each
+     path with the launch counts zeroed before it and read after, on
+     every rank: SHARD_RANKS ranks over gloo sharing the card run the
+     DPF, DCF, Half-Tree, Grotto and VDPF (BLAKE3, then SHA-256)
+     domain-sharded EvalAll at SHARD_BITS, each shard against the
+     unsharded card EvalAll and reconstructed (the VDPF's two-level proof
+     equal between the parties and its second chain recomputed plain;
+     the whole chain plain at VDPF_CHAIN_CHECK_BITS), the PIR lookup over
+     2^PIR_LOG2_ROWS rows of PIR_WORDS words, data-sharded DPF Gen and
+     Eval of 2^DATA_LOG2_KEYS keys and the VDMPF's data-sharded
+     BatchEval at the bench's shape; 4 ranks the 2 x 2 data x domain
+     mesh (MESH2D_KEYS keys at MESH2D_BITS); one rank over NCCL; then
+     the fss_crypto front door (``crypto.Dpf``/``Dcf``, ChaCha and
+     AES-128-MMO: Gen, Eval of CUDA tensors, EvalAll), reconstructed
+     and sampled against the CPU front door. Each rank's times are
+     those of ranks sharing one card, not a scaling figure.
 
-The last lines are the kernels JSON line, the card's name and power limit
-as nvidia-smi gives them, and the result JSON line.
+The last lines are the kernels JSON line (each kernel's launches include
+phase 7's, ``launches_multi_device``), the card's name and power limit as
+nvidia-smi gives them, and the result JSON line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import functools
 import hashlib
 import json
@@ -87,6 +106,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -931,11 +951,12 @@ def grotto_path(prg2, sfx: str, dev, rng):
                     launches=launches)
 
 
-def vdmpf_inputs():
-    """The bench's VDMPF draws: default_rng(7), the sorted distinct alphas,
-    betas with lane 0 below 2^31; the Generator goes on to Gen's draws."""
+def vdmpf_inputs(bits: int = VDMPF_BITS):
+    """The bench's VDMPF draws: default_rng(7), the sorted distinct alphas
+    below 2^bits, betas with lane 0 below 2^31; the Generator goes on to
+    Gen's draws."""
     vrng = np.random.default_rng(7)
-    alphas = sorted(vrng.choice(1 << VDMPF_BITS, size=VDMPF_T,
+    alphas = sorted(vrng.choice(1 << bits, size=VDMPF_T,
                                 replace=False).tolist())
     betas = np.zeros((VDMPF_T, 4), dtype=np.uint32)
     betas[:, 0] = vrng.integers(0, 2**31, size=VDMPF_T)
@@ -1204,6 +1225,641 @@ def grotto_timing(G, power_limit: str, kind: str) -> None:
         eval_all=ea, main_path_s=G["main_s"],
         clocks=nvidia_smi("clocks.sm,clocks.max.sm,power.draw,"
                           "temperature.gpu"))
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: multi-device runs (fss_tpu_torch.parallel) and the front door
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2          # ranks sharing the one card over gloo
+SHARD_BITS = 24          # the five tree schemes' domain-sharded EvalAll
+SHARD_ALPHA = 0xAAAAAA   # in the upper shard at 24 bits
+VDPF_CHAIN_CHECK_BITS = 12  # the two-level chain recomputed plain
+DATA_BITS = 16           # data-sharded DPF Gen and Eval (bench.py:1-14)
+DATA_LOG2_KEYS = 20
+PIR_LOG2_ROWS = 22       # 2^22 rows x 16 words: 64-byte records, 256 MiB
+PIR_WORDS = 16
+PIR_INDEX = 3_141_592
+MESH2D_BITS = 20         # the 2 x 2 data x domain mesh
+MESH2D_KEYS = 4
+FRONT_BITS = 16          # crypto.Dpf / Dcf(16, "uint", prg)
+FRONT_LOG2_POINTS = 20
+FRONT_EVAL_ALL_BITS = 20
+FRONT_SAMPLE = 512       # points held against the CPU front door
+SHARED_CARD = ("ranks sharing one card, time-sliced: each rank's own "
+               "times, not a scaling figure")
+
+
+def phase7_sizes() -> dict:
+    """Phase 7's shapes for the ranks, which import this module anew."""
+    return {k: globals()[k] for k in (
+        "SHARD_BITS", "SHARD_ALPHA", "VDPF_CHAIN_CHECK_BITS", "DATA_BITS",
+        "DATA_LOG2_KEYS", "PIR_LOG2_ROWS", "PIR_WORDS", "PIR_INDEX",
+        "MESH2D_BITS", "MESH2D_KEYS", "VDMPF_BITS", "VDMPF_LOG2_POINTS")}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(dev, fn):
+    """(fn(), its ms): CUDA events around it on the card (the host clock
+    elsewhere)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
+def _stream(dev):
+    """``dev`` as this thread's device (a new thread starts on device 0)
+    and a new CUDA stream on it as the current one, after the default
+    stream's work (nothing off the card)."""
+    stack = contextlib.ExitStack()
+    if dev.type == "cuda":
+        stack.enter_context(torch.cuda.device(dev))
+        s = torch.cuda.Stream(dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        stack.enter_context(torch.cuda.stream(s))
+    return stack
+
+
+def _counted(dev, fn):
+    """(fn(), the launches it made): the counts zeroed just before it and
+    read just after."""
+    from fss_tpu_torch import _build
+    _sync(dev)
+    _build.reset_launches()
+    out = fn()
+    _sync(dev)
+    return out, {k: v for k, v in _build.launches.items() if v}
+
+
+def _record(path, launches, needs, checks: dict, **detail) -> dict:
+    """One path's result: ``exact`` all its checks, ``launched`` every
+    kernel in ``needs`` launched in its counted run."""
+    return {"path": path, "launches": launches,
+            "exact": all(bool(v) for v in checks.values()),
+            "launched": all(launches.get(k, 0) > 0 for k in needs),
+            "checks": {k: bool(v) for k, v in checks.items()}, **detail}
+
+
+def _rank_device(dev_type: str):
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dev_type == "cuda" else torch.device("cpu"))
+
+
+def _rows(t, r: int, count: int):
+    """Shard r of ``count`` of t's rows."""
+    rows = t.shape[0] // count
+    return t[r * rows:(r + 1) * rows]
+
+
+def _tree_paths(Z, dev, mesh, r: int, count: int,
+                names=("dpf", "dcf", "half_tree", "grotto")) -> list:
+    """7a. The DPF, DCF (lt), Half-Tree and Grotto domain-sharded EvalAll
+    at SHARD_BITS (Uint(32), ChaCha): Gen and both parties' sharded
+    EvalAll counted and timed; each shard against the same rows of the
+    unsharded card EvalAll, and the parties' shares reconstructed over
+    the shard."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Dcf, Dpf, GrottoDcf, HalfTreeDpf
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    n, alpha = Z["SHARD_BITS"], Z["SHARD_ALPHA"]
+    g = groups.Uint(32)
+    rng = np.random.default_rng(70)
+    s0s = blk.words(rng.integers(0, 2**32, size=(2, 4), dtype=np.uint64),
+                    dev)
+    hk = tuple(int(w) for w in rng.integers(0, 2**32, size=4))
+    beta = blk.words([0x12345678, 0, 0, 0], dev)
+    x = _rows(torch.arange(1 << n, device=dev), r, count)
+    schemes = {
+        "dpf": (Dpf(n, g, ChaCha(2, NONCE), device=dev),
+                pm.dpf_eval_all_sharded, ("dpf_gen", "dpf_eval_all")),
+        "dcf": (Dcf(n, g, ChaCha(4, NONCE), device=dev),
+                pm.dcf_eval_all_sharded, ("dcf_gen", "dcf_eval_all")),
+        "half_tree": (HalfTreeDpf(n, g, ChaCha(1, NONCE), hash_key=hk,
+                                  device=dev),
+                      pm.half_tree_eval_all_sharded,
+                      ("ht_gen", "ht_eval_all")),
+        "grotto": (GrottoDcf(n, ChaCha(2, NONCE), device=dev),
+                   pm.grotto_eval_all_sharded, ("dpf_gen", "dpf_eval_all")),
+    }
+    out = []
+    for name in names:
+        d, sharded, needs = schemes[name]
+        ms = []
+
+        def run():
+            key = (d.gen(s0s, alpha) if name == "grotto"
+                   else d.gen(s0s, alpha, beta))
+            key = key if isinstance(key, tuple) else (key,)
+            head = ((d.prg, d.group) if name != "grotto" else (d.prg,))
+            extra = (d.hash_key,) if name == "half_tree" else ()
+            ys = []
+            for p in (0, 1):
+                y, t = _timed(dev, lambda p=p: sharded(
+                    *head, n, p, *extra, s0s[p], *key, mesh))
+                ys.append(y.to_local())
+                ms.append(t)
+            return key, ys
+
+        (key, ys), launches = _counted(dev, run)
+        unsharded = all(torch.equal(ys[p], _rows(d.eval_all(
+            p, s0s[p], *key), r, count)) for p in (0, 1))
+        if name == "grotto":
+            rec, want = ys[0] ^ ys[1], (x >= alpha).to(torch.int32)
+        else:
+            rec = g.add(g.from_block(ys[0]), g.from_block(ys[1]))[:, 0]
+            hit = x < alpha if name == "dcf" else x == alpha
+            want = torch.where(hit, 0x12345678, 0).to(torch.int32)
+        out.append(_record(name, launches, needs,
+                           {"same_as_unsharded": unsharded,
+                            "reconstructs": torch.equal(rec, want)},
+                           in_bits=n, shard_rows=x.numel(), ms=ms))
+    return out
+
+
+def _vdpf_paths(Z, dev, meshes, r: int, count: int) -> list:
+    """7b. The VDPF's sharded EvalAll at SHARD_BITS (Uint(32), ChaCha),
+    keyed with BLAKE3, then SHA-256: Gen and both parties counted and
+    timed, the parties at once (a thread, a CUDA stream and a "domain"
+    mesh of its own each, ``meshes``), so that their level-1 chains, one
+    thread block each, overlap. The shares against the unsharded card
+    EvalAll's and reconstructed; pi equal between the parties; the shard
+    proofs gathered for the second chain (the chain calls recorded)
+    holding this rank's own, and pi the plain chain from cs over them.
+    Then, at VDPF_CHAIN_CHECK_BITS, the whole two-level chain recomputed
+    plain from the unsharded pi~."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Vdpf
+    from fss_tpu_torch.hash import Blake3, Sha256
+    from fss_tpu_torch.ops import eval_all_cuda, vdpf_cuda
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    from fss_tpu_torch.schemes import vdpf as plain_vdpf
+    g = groups.Uint(32)
+    beta = blk.words([0x0BADCAFE, 0, 0, 0], dev)
+    prove = vdpf_cuda.prove
+    party_of = threading.local()
+    out = []
+    for hname, hashes in (("blake3", Blake3(VDPF_IV)),
+                          ("sha256", Sha256(VDPF_SHA_KEY))):
+        res = {}
+        for n in (Z["SHARD_BITS"], Z["VDPF_CHAIN_CHECK_BITS"]):
+            d = Vdpf(n, g, ChaCha(2, NONCE), hashes=hashes, device=dev)
+            alpha = Z["SHARD_ALPHA"] % (1 << n)
+            calls = {0: [], 1: []}
+
+            def recording(h, pts, cs):
+                calls[party_of.p].append((pts, prove(h, pts, cs)))
+                return calls[party_of.p][-1][1]
+
+            def party(p, s0, key):
+                party_of.p = p
+                with _stream(dev):
+                    return _timed(dev, lambda: pm.vdpf_eval_all_sharded(
+                        d.prg, hashes, g, n, p, s0, *key, meshes[p]))
+
+            def run():
+                s0s, *key = d.gen_retry(np.random.default_rng(71), alpha,
+                                        beta)
+                with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                    got = list(pool.map(party, (0, 1), s0s, (key, key)))
+                return s0s, key, got
+
+            vdpf_cuda.prove = recording
+            try:
+                (s0s, key, got), launches = _counted(dev, run)
+            finally:
+                vdpf_cuda.prove = prove
+            (y0, pi0), (y1, pi1) = (o for o, _ in got)
+            ys = [y0.to_local(), y1.to_local()]
+            # per party: this shard's chain, then the shard proofs' chain
+            level1, gathered = calls[0][0][1], calls[0][1][0]
+            full, _ = eval_all_cuda.vdpf_eval_all(
+                d.prg, hashes, g, n, 0, s0s[0], *key, "tree")
+            x = _rows(torch.arange(1 << n, device=dev), r, count)
+            rec = g.add(g.from_block(ys[0]), g.from_block(ys[1]))[:, 0]
+            checks = {
+                "same_as_unsharded": torch.equal(ys[0], _rows(full, r,
+                                                              count)),
+                "reconstructs": torch.equal(rec, torch.where(
+                    x == alpha, 0x0BADCAFE, 0).to(torch.int32)),
+                "parties_pi_equal": torch.equal(pi0, pi1),
+                "own_shard_proof_gathered": torch.equal(gathered[r], level1),
+                "second_chain_plain": torch.equal(vdpf_cuda.prove_plain(
+                    hashes, gathered, key[1]), pi0)}
+            if n == Z["VDPF_CHAIN_CHECK_BITS"]:
+                pts = {}
+                plain_vdpf.leaf_outputs(
+                    lambda a, b: vdpf_cuda.xor_hash(hashes, a, b),
+                    lambda p, c: pts.setdefault("pi~", p), g, 0,
+                    *eval_all_cuda.expand_leaves(d.prg, n, 0, s0s[0],
+                                                 key[0]), key[1], key[2])
+                level1s = torch.stack([vdpf_cuda.prove_plain(
+                    hashes, _rows(pts["pi~"], i, count), key[1])
+                    for i in range(count)])
+                checks["two_level_chain_plain"] = torch.equal(
+                    vdpf_cuda.prove_plain(hashes, level1s, key[1]), pi0)
+            res[n] = (launches, checks, [t for _, t in got])
+        launches, checks, ms = res[Z["SHARD_BITS"]]
+        checks.update({f"{k}@{Z['VDPF_CHAIN_CHECK_BITS']}": v for k, v in
+                       res[Z["VDPF_CHAIN_CHECK_BITS"]][1].items()})
+        out.append(_record(f"vdpf_{hname}", launches,
+                           ("dpf_gen", "dpf_eval_all", f"{hname}_xor_hash",
+                            f"{hname}_chain"), checks,
+                           in_bits=Z["SHARD_BITS"], ms=ms,
+                           parties_at_once=True))
+    return out
+
+
+def _pir_path(Z, dev, mesh, r: int, count: int) -> dict:
+    """7c. ``pir_lookup_sharded`` over 2^PIR_LOG2_ROWS rows of PIR_WORDS
+    words (each rank makes its own rows on the card from their indices):
+    Gen and both parties' answers counted and timed; the answers add to
+    the row."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Dpf
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    n, words = Z["PIR_LOG2_ROWS"], Z["PIR_WORDS"]
+
+    def rows(first, count_rows):
+        i = torch.arange(first * words, (first + count_rows) * words,
+                         dtype=torch.int64, device=dev)
+        v = (i * 0x9E3779B97F4A7C15 + 0x632BE59BD9B4E019) ^ (i >> 7)
+        return blk.i32(v >> 29).reshape(count_rows, words)
+
+    local = 1 << (n - (count.bit_length() - 1))
+    db = rows(r * local, local)
+    d = Dpf(n, groups.Uint(32), ChaCha(2, NONCE), device=dev)
+    s0s = blk.words(np.random.default_rng(72).integers(
+        0, 2**32, size=(2, 4), dtype=np.uint64), dev)
+    ms = []
+
+    def run():
+        cws = d.gen(s0s, Z["PIR_INDEX"], (1, 0, 0, 0))
+        answers = []
+        for p in (0, 1):
+            a, t = _timed(dev, lambda p=p: pm.pir_lookup_sharded(
+                d.prg, n, p, s0s[p], cws, db, mesh))
+            answers.append(a)
+            ms.append(t)
+        return answers
+
+    answers, launches = _counted(dev, run)
+    row = blk.u64(rows(Z["PIR_INDEX"], 1)[0])
+    got = (blk.u64(answers[0]) + blk.u64(answers[1])) & blk.MASK32
+    return _record("pir", launches, ("dpf_gen", "dpf_eval_all"),
+                   {"answer_is_the_row": torch.equal(got, row)},
+                   rows=1 << n, words=words, db_bytes=(1 << n) * words * 4,
+                   ms=ms)
+
+
+def _data_path(Z, dev, mesh, r: int, count: int) -> dict:
+    """7d. Data-sharded DPF Gen and Eval (``shard_batch``): 2^DATA_LOG2_KEYS
+    keys over a DATA_BITS domain (Uint(32), ChaCha), this rank's slice
+    through Gen and both parties' Eval at each key's alpha, counted and
+    timed; every key of the slice reconstructs to its beta."""
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Dpf
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    B, n = 1 << Z["DATA_LOG2_KEYS"], Z["DATA_BITS"]
+    rng = np.random.default_rng(73)
+    g = groups.Uint(32)
+    d = Dpf(n, g, ChaCha(2, NONCE), device=dev)
+    s0s, alphas, betas = (pm.shard_batch(mesh, a, "data").to_local()
+                          for a in (
+        rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint64),
+        rng.integers(0, 1 << n, size=B, dtype=np.uint64),
+        rng.integers(0, 2**32, size=(B, 4), dtype=np.uint64)))
+    ms = {}
+
+    def run():
+        cws, ms["gen"] = _timed(dev, lambda: d.gen_batch(
+            s0s, alphas, betas, layout="packed"))
+        ys = []
+        for p in (0, 1):
+            y, ms[f"eval_{p}"] = _timed(dev, lambda p=p: d.eval(
+                p, s0s[:, p].contiguous(), cws, alphas))
+            ys.append(y)
+        return ys
+
+    ys, launches = _counted(dev, run)
+    rec = g.add(g.from_block(ys[0]), g.from_block(ys[1]))[:, 0]
+    return _record("data_sharded_dpf", launches, ("dpf_gen", "dpf_eval"),
+                   {"every_key_reconstructs": torch.equal(rec,
+                                                          betas[:, 0])},
+                   keys=B, local_keys=alphas.numel(), in_bits=n, ms=ms)
+
+
+def _vdmpf_path(Z, dev, mesh, r: int, count: int) -> dict:
+    """7e. ``vdmpf_batch_eval_sharded`` at the bench's shape (VDMPF_BITS,
+    t = VDMPF_T, 2^VDMPF_LOG2_POINTS points plus the alphas; Uint(32),
+    ChaCha, BLAKE3 under the default IV): Gen and both parties counted
+    and timed. The shares against the unsharded ``Vdmpf.batch_eval``'s
+    rows, pi equal between the parties and the plain chain from zero over
+    every shard's own tree-fold proof, recomputed here; the shares
+    reconstruct to the payloads."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import DEFAULT_HASH_IV, Vdmpf
+    from fss_tpu_torch.hash import Blake3
+    from fss_tpu_torch.ops import vdpf_cuda
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    g = groups.Uint(32)
+    n = Z["VDMPF_BITS"]
+    d = Vdmpf(n, group=g, prg=ChaCha(2, NONCE),
+              hashes=Blake3(DEFAULT_HASH_IV), device=dev)
+    vrng, alphas, betas = vdmpf_inputs(n)
+    xs = np.concatenate([vrng.integers(0, 1 << n,
+                                       size=1 << Z["VDMPF_LOG2_POINTS"]),
+                         alphas]).astype(np.uint32)
+    ms = []
+
+    def run():
+        keys = d.gen_retry(vrng, alphas, betas)
+        got = []
+        for p in (0, 1):
+            o, t = _timed(dev, lambda p=p: pm.vdmpf_batch_eval_sharded(
+                d.prg, d.hashes, g, n, d.bucket_bits, p, keys[p], xs,
+                mesh, "data"))
+            got.append(o)
+            ms.append(t)
+        return keys, got
+
+    (keys, got), launches = _counted(dev, run)
+    eta, rows = len(xs), -(-len(xs) // count)
+    padded = np.zeros(rows * count, np.uint32)
+    padded[:eta] = xs
+    shard_pis = torch.stack([d.batch_eval(0, keys[0], padded[
+        i * rows:(i + 1) * rows])[1] for i in range(count)])
+    merged = vdpf_cuda.prove_plain(d.hashes, shard_pis, torch.zeros(
+        (4, 4), dtype=torch.int32, device=dev))
+    full, _ = d.batch_eval(0, keys[0], xs)
+    ys = [y.to_local() for y, _ in got]
+    mine = xs[r * rows:(r + 1) * rows]
+    beta_of = dict(zip(alphas, betas[:, 0].tolist()))
+    want = blk.words([beta_of.get(int(v), 0) for v in mine], dev)
+    rec = g.add(g.from_block(ys[0]), g.from_block(ys[1]))[:, 0]
+    return _record("vdmpf", launches,
+                   ("dpf_gen", "blake3_xor_hash", "feistel_route",
+                    "vdpf_eval", "blake3_hash64", "blake3_chain"),
+                   {"same_as_unsharded": torch.equal(
+                       ys[0], full[r * rows:r * rows + ys[0].shape[0]]),
+                    "parties_pi_equal": torch.equal(got[0][1], got[1][1]),
+                    "merge_chain_plain": torch.equal(merged, got[0][1]),
+                    "reconstructs": torch.equal(rec, want)},
+                   points=eta, local_points=ys[0].shape[0], t=VDMPF_T,
+                   in_bits=n, ms=ms)
+
+
+def shard_rank(rank: int, world: int, dev_type: str, Z: dict) -> list:
+    """One of SHARD_RANKS ranks: 7a-7e on a 1D "domain" mesh and a 1D
+    "data" mesh of the world (the VDPF's parties on a "domain" mesh each,
+    over groups of their own). Returns the paths' records."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from fss_tpu_torch.parallel import mesh as pm
+    dev = _rank_device(dev_type)
+    domain = pm.make_mesh(axis_names=("domain",), device_type=dev_type)
+    data = pm.make_mesh(axis_names=("data",), device_type=dev_type)
+    parties = [DeviceMesh.from_group(dist.new_group(list(range(world))),
+                                     dev_type, mesh_dim_names=("domain",))
+               for _ in (0, 1)]
+    pm.replicate(domain, [0, 0, 0, 0])  # DTensor's and gloo's first use
+    r = domain.get_local_rank("domain")
+    out = _tree_paths(Z, dev, domain, r, world)
+    out += _vdpf_paths(Z, dev, parties, r, world)
+    out.append(_pir_path(Z, dev, domain, r, world))
+    out.append(_data_path(Z, dev, data, r, world))
+    out.append(_vdmpf_path(Z, dev, data, r, world))
+    return out
+
+
+def mesh2d_rank(rank: int, world: int, dev_type: str, Z: dict) -> list:
+    """7f. One of 4 ranks of a 2 x 2 ("data", "domain") mesh: MESH2D_KEYS
+    DPF keys at MESH2D_BITS (Uint(32), ChaCha) made by Gen, sharded on
+    "data", each key's EvalAll sharded on "domain", both parties counted
+    and timed; each rank's [keys/2, 2^(n-1), 4] block against the
+    unsharded card EvalAll of its keys, reconstructed."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Dpf
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.prg.chacha import ChaCha
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = _rank_device(dev_type)
+    m = init_device_mesh(dev_type, (2, 2), mesh_dim_names=("data",
+                                                            "domain"))
+    pm.replicate(m, [0, 0, 0, 0])  # DTensor's and gloo's first use
+    i, j = m.get_coordinate()
+    n, B = Z["MESH2D_BITS"], Z["MESH2D_KEYS"]
+    g = groups.Uint(32)
+    d = Dpf(n, g, ChaCha(2, NONCE), device=dev)
+    rng = np.random.default_rng(74)
+    s0s = blk.words(rng.integers(0, 2**32, size=(B, 2, 4), dtype=np.uint64),
+                    dev)
+    alphas = rng.integers(0, 1 << n, size=B, dtype=np.uint64)
+    betas = blk.words(rng.integers(0, 2**32, size=(B, 4), dtype=np.uint64),
+                      dev)
+    ms = []
+
+    def run():
+        cws = pm.shard_batch(m, d.gen_batch(s0s, alphas, betas))
+        ys = []
+        for p in (0, 1):
+            y, t = _timed(dev, lambda p=p: pm.dpf_eval_all_sharded(
+                d.prg, g, n, p, pm.shard_batch(m, s0s[:, p]), cws, m))
+            ys.append(y)
+            ms.append(t)
+        return cws.to_local(), ys
+
+    (cws, ys), launches = _counted(dev, run)
+    half, keys = (1 << n) // 2, B // 2
+    mine = range(i * keys, (i + 1) * keys)
+    same = all(torch.equal(ys[p].to_local()[q], d.eval_all(
+        p, s0s[k, p], cws[q])[j * half:(j + 1) * half])
+        for p in (0, 1) for q, k in enumerate(mine))
+    x = torch.arange(j * half, (j + 1) * half, device=dev)
+    rec = g.add(g.from_block(ys[0].to_local()),
+                g.from_block(ys[1].to_local()))[..., 0]
+    want = torch.stack([torch.where(x == int(alphas[k]), betas[k, 0], 0)
+                        for k in mine])
+    return [_record("mesh2d", launches, ("dpf_gen", "dpf_eval_all"),
+                    {"same_as_unsharded": same,
+                     "layout": [str(s) for s in ys[0].placements]
+                     == ["S(0)", "S(1)"] and tuple(ys[0].shape) == (
+                         B, 1 << n, 4),
+                     "reconstructs": torch.equal(rec, want)},
+                    coordinate=[i, j], in_bits=n, keys=B, ms=ms)]
+
+
+def nccl_path(dev, Z: dict) -> list:
+    """7g. One rank over NCCL, the backend for one rank a card: the DPF's
+    and Grotto's sharded EvalAll at SHARD_BITS (Grotto's all_gather) and
+    the PIR lookup (its all_reduce) through a 1-rank "domain" mesh, as
+    7a and 7c check them."""
+    import torch.distributed as dist
+    from fss_tpu_torch.parallel import mesh as pm
+    from fss_tpu_torch.parallel import spawn
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{spawn.free_port()}", rank=0,
+        world_size=1)
+    try:
+        m = pm.make_mesh(axis_names=("domain",))
+        pm.replicate(m, [0, 0, 0, 0])  # NCCL's first use
+        backend = dist.get_backend(m.get_group("domain"))
+        out = _tree_paths(Z, dev, m, 0, 1, ("dpf", "grotto"))
+        out.append(_pir_path(Z, dev, m, 0, 1))
+    finally:
+        dist.destroy_process_group()
+    for rec in out:
+        rec["checks"]["backend_is_nccl"] = backend == "nccl"
+        rec["exact"] = rec["exact"] and backend == "nccl"
+    return out
+
+
+def front_door_path(dev) -> list:
+    """7h. The fss_crypto front door: crypto.Dpf(FRONT_BITS, "uint", prg)
+    and crypto.Dcf(FRONT_BITS, "uint", prg) ("lt"), prg "chacha" then
+    "aes128_mmo": Gen from CPU tensors, both parties' Eval of
+    2^FRONT_LOG2_POINTS points given as CUDA tensors (shares back on the
+    card) and EvalAll of a key at FRONT_EVAL_ALL_BITS, counted and timed;
+    every share reconstructed, and FRONT_SAMPLE points of each held
+    against the CPU front door (the kernels' plain versions)."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import crypto
+    from fss_tpu_torch import groups
+    g = groups.Uint(32)
+    rng = np.random.default_rng(75)
+    beta = torch.tensor([0x600DF00D, 0, 0, 0], dtype=torch.int32)
+    out = []
+    for prg in ("chacha", "aes128_mmo"):
+        for cls in ("Dpf", "Dcf"):
+            F = getattr(crypto, cls)
+            d = F(FRONT_BITS, "uint", prg, device=dev)
+            d_all = F(FRONT_EVAL_ALL_BITS, "uint", prg, device=dev)
+            s0s = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 4),
+                                                dtype=np.int32))
+            alpha = int(rng.integers(0, 1 << FRONT_BITS))
+            alpha_all = int(rng.integers(0, 1 << FRONT_EVAL_ALL_BITS))
+            x = blk.words(rng.integers(0, 1 << FRONT_BITS,
+                                       size=1 << FRONT_LOG2_POINTS,
+                                       dtype=np.uint64), dev)
+            x[:64] = alpha
+            ms = {}
+
+            def run():
+                cws = d.gen(s0s, alpha, beta)
+                cws_all = d_all.gen(s0s, alpha_all, beta)
+                ys, alls = [], []
+                for p in (0, 1):
+                    y, ms[f"eval_{p}"] = _timed(dev, lambda p=p: d.eval(
+                        p, s0s[p].to(dev), cws.to(dev), x))
+                    a, ms[f"eval_all_{p}"] = _timed(
+                        dev, lambda p=p: d_all.eval_all(p, s0s[p], cws_all))
+                    ys.append(y)
+                    alls.append(a)
+                return cws, cws_all, ys, alls
+
+            (cws, cws_all, ys, alls), launches = _counted(dev, run)
+
+            def want(xs, a):
+                hit = xs < a if cls == "Dcf" else xs == a
+                return torch.where(hit, 0x600DF00D, 0).to(torch.int32)
+
+            rec = g.add(g.from_block(ys[0]), g.from_block(ys[1]))[:, 0]
+            rec_all = g.add(g.from_block(alls[0]), g.from_block(alls[1]))
+            xa = torch.arange(1 << FRONT_EVAL_ALL_BITS)
+            sx = x[:FRONT_SAMPLE].cpu()
+            sa = torch.from_numpy(rng.integers(
+                0, 1 << FRONT_EVAL_ALL_BITS, size=FRONT_SAMPLE))
+            cpu = F(FRONT_BITS, "uint", prg, device="cpu")
+            cpu_all = F(FRONT_EVAL_ALL_BITS, "uint", prg, device="cpu")
+            plain = all(
+                torch.equal(cpu.eval(p, s0s[p], cws, sx),
+                            ys[p][:FRONT_SAMPLE].cpu())
+                and torch.equal(cpu_all.eval(p, s0s[p], cws_all,
+                                             sa.to(torch.int32)),
+                                alls[p][sa])
+                for p in (0, 1))
+            sfx = "_aes" if prg == "aes128_mmo" else ""
+            s = cls.lower()
+            out.append(_record(
+                f"front_door_{s}_{prg}", launches,
+                tuple(f"{s}_{k}{sfx}" for k in ("gen", "eval", "eval_all")),
+                {"eval_on_card": all(y.device.type == "cuda" for y in ys),
+                 "eval_reconstructs": torch.equal(rec.cpu(),
+                                                  want(x.cpu(), alpha)),
+                 "eval_all_reconstructs": torch.equal(rec_all[:, 0],
+                                                      want(xa, alpha_all)),
+                 "sample_vs_plain": plain},
+                points=x.numel(), eval_all_bits=FRONT_EVAL_ALL_BITS,
+                sample=FRONT_SAMPLE, ms=ms))
+    return out
+
+
+def phase7(kind: str, power_limit: str, backend: str = "gloo",
+           ranks: int = SHARD_RANKS):
+    """7. The multi-device paths and the front door, each counted and
+    checked on the card: ``ranks`` ranks over ``backend`` (7a-7e:
+    ``shard_rank``; gloo: sharing the card, as ``chip_smoke.py`` runs it;
+    NCCL: one a card, ``scripts/torch_multi_device.py --nccl``), 4 ranks
+    on a 2 x 2 mesh (7f: ``mesh2d_rank``), one rank over NCCL in this
+    process (7g) and the front door (7h). One line a path, each rank's ms
+    and launches beside the card's name and power limit. Returns (every
+    path exact and through its kernels, the launches of all of them
+    summed over ranks)."""
+    from fss_tpu_torch.parallel import spawn
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    Z = phase7_sizes()
+    groups_of_records = []
+    world_s = {}
+    for name, count, fn in (("shard", ranks, shard_rank),
+                            ("mesh2d", 4, mesh2d_rank)):
+        t = time.perf_counter()
+        res = spawn.run(fn, count, ("cuda", Z), backend=backend,
+                        wait_s=900)
+        world_s[name] = round(time.perf_counter() - t, 1)
+        groups_of_records += [(backend, list(recs)) for recs in zip(*res)]
+    t = time.perf_counter()
+    groups_of_records += [("nccl", [rec]) for rec in nccl_path(dev, Z)]
+    world_s["nccl"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    groups_of_records += [("in-process", [rec])
+                          for rec in front_door_path(dev)]
+    world_s["front_door"] = round(time.perf_counter() - t, 1)
+    totals, ok = {}, True
+    for how, recs in groups_of_records:
+        for rec in recs:
+            for k, v in rec["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        path_ok = all(r["exact"] and r["launched"] for r in recs)
+        ok = ok and path_ok
+        note = ("one rank" if len(recs) == 1 else SHARED_CARD
+                if how == "gloo" else "one rank a card")
+        log("multi_device", path=recs[0]["path"], backend=how,
+            ranks=len(recs), card=kind, power_limit=power_limit, note=note,
+            ok=path_ok, per_rank=recs)
+    log("phase7", seconds=round(time.perf_counter() - t0, 1),
+        parts_s=world_s, launches=totals, ok=ok)
+    return ok, totals
 
 
 def main() -> int:
@@ -2517,6 +3173,15 @@ def main() -> int:
             max_abs_err=frow["max_abs_err"])
         return 1
     rows.append(frow)
+
+    # 7. Multi-device runs and the front door; their launches join each
+    # kernel's count (``launches_multi_device`` apart).
+    ok, multi = phase7(kind, power_limit)
+    if not ok:
+        return 1
+    for row in rows:
+        row["launches_multi_device"] = multi.get(row["name"], 0)
+        row["launches"] += row["launches_multi_device"]
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -59,6 +59,7 @@ launches = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches from several threads
 
 
 def reset_launches() -> None:
@@ -144,7 +145,8 @@ def launch(source: str, fn, *args, device: torch.device,
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    launches[kernel or source] += 1
+    with _count_lock:
+        launches[kernel or source] += 1
 
 
 class PrgArg(ctypes.Structure):

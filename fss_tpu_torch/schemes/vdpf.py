@@ -171,20 +171,24 @@ def verify(pi0: torch.Tensor, pi1: torch.Tensor) -> bool:
     return bool(torch.equal(pi0, pi1))
 
 
-def domain_lanes(in_bits: int, device) -> torch.Tensor:
-    """Every x of the domain as [2^in_bits, 4] lanes, in x order (lane 0
-    only: EvalAll domains fit in 32 bits)."""
+def domain_lanes(in_bits: int, device, base: int = 0) -> torch.Tensor:
+    """The 2^in_bits points from ``base`` on as [2^in_bits, 4] lanes, in x
+    order (lane 0 only: EvalAll domains fit in 32 bits)."""
     x = torch.zeros((1 << in_bits, 4), dtype=torch.int32, device=device)
     x[:, 0] = torch.arange(1 << in_bits, dtype=torch.int32, device=device)
+    if base:  # a shard's: aligned, so its points never cross 2^31
+        x[:, 0] += (base ^ 0x80000000) - 0x80000000
     return x
 
 
 def leaf_outputs(xor_hash, prove_fn, group, party: int, s: torch.Tensor,
-                 t: torch.Tensor, cs: torch.Tensor, ocw: torch.Tensor):
-    """EvalAll from the leaf layer (seeds [2^n, 4], t [2^n] in x order):
-    (ys [2^n, 4], pi [4, 4]), with ``prove_fn(pi_tildes, cs)`` the fold."""
+                 t: torch.Tensor, cs: torch.Tensor, ocw: torch.Tensor,
+                 base: int = 0):
+    """EvalAll from the leaf layer (seeds [2^n, 4], t [2^n] in x order,
+    the leaves of the points from ``base`` on): (ys [2^n, 4], pi [4, 4]),
+    with ``prove_fn(pi_tildes, cs)`` the fold."""
     ys = _dpf.finalize_leaves(group, party, s, t, ocw)
-    x = domain_lanes(s.shape[0].bit_length() - 1, s.device)
+    x = domain_lanes(s.shape[0].bit_length() - 1, s.device, base)
     return ys, prove_fn(correct_(xor_hash(x, s), t, cs), cs)
 
 
