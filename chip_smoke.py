@@ -88,11 +88,23 @@ Phases, each printing one line (any failure exits non-zero):
      the fss_crypto front door (``crypto.Dpf``/``Dcf``, ChaCha and
      AES-128-MMO: Gen, Eval of CUDA tensors, EvalAll), reconstructed
      and sampled against the CPU front door. Each rank's times are
-     those of ranks sharing one card, not a scaling figure.
+     those of ranks sharing one card, not a scaling figure;
+  8. the rest of the port (``phase8``), one line each: (a) the six sample
+     twins (``samples/torch_*.py``) on the card, each with its kernels'
+     launch counts; (b) ``utils.profile_trace`` around one Eval of the
+     DPF main path's 2^20 keys, its trace read back for the Eval kernel's
+     symbol; (c) ``utils.throughput`` of that Eval beside phase 6's
+     CUDA-event rate; (d) the host engine (``fss_tpu_torch.native``, its
+     g++ build started beside nvcc's in phase 2) against the card byte
+     for byte: DPF, DCF and Half-Tree Gen and Eval of 4096 keys at 16
+     bits and EvalAll of one key at 20, with ChaCha and AES-128-MMO, a
+     VDPF with BLAKE3, the PRP against its permutation table; (e) the
+     host engine's DPF Eval rate, with the host CPU's model.
 
 The last lines are the kernels JSON line (each kernel's launches include
-phase 7's, ``launches_multi_device``), the card's name and power limit as
-nvidia-smi gives them, and the result JSON line.
+phase 7's, ``launches_multi_device``, and the twins', ``launches_samples``),
+the card's name and power limit as nvidia-smi gives them, and the result
+JSON line.
 """
 
 from __future__ import annotations
@@ -101,13 +113,18 @@ import concurrent.futures
 import contextlib
 import functools
 import hashlib
+import importlib
+import io
 import json
+import os
 import pathlib
 import re
+import resource
 import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -1311,6 +1328,23 @@ def _record(path, launches, needs, checks: dict, **detail) -> dict:
             "checks": {k: bool(v) for k, v in checks.items()}, **detail}
 
 
+def _memory() -> dict:
+    """MiB: the card's free and total memory and what this process's
+    allocator holds of it, the host's available memory and this process's
+    peak resident size. Phase 7's ranks share both with this process."""
+    free, total = torch.cuda.mem_get_info()
+    host = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                host = int(line.split()[1]) >> 10
+    return {"card_free_mib": free >> 20, "card_total_mib": total >> 20,
+            "card_reserved_here_mib": torch.cuda.memory_reserved() >> 20,
+            "host_available_mib": host,
+            "max_rss_here_mib": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss >> 10}
+
+
 def _rank_device(dev_type: str):
     return (torch.device("cuda", torch.cuda.current_device())
             if dev_type == "cuda" else torch.device("cpu"))
@@ -1831,11 +1865,20 @@ def phase7(kind: str, power_limit: str, backend: str = "gloo",
     Z = phase7_sizes()
     groups_of_records = []
     world_s = {}
+    # The ranks share the card with this process: hand them its cache.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("phase7_start", memory=_memory())
     for name, count, fn in (("shard", ranks, shard_rank),
                             ("mesh2d", 4, mesh2d_rank)):
         t = time.perf_counter()
-        res = spawn.run(fn, count, ("cuda", Z), backend=backend,
-                        wait_s=900)
+        try:
+            res = spawn.run(fn, count, ("cuda", Z), backend=backend,
+                            wait_s=900)
+        except RuntimeError as e:
+            e.add_note(f"phase 7 {name}: memory after the ranks "
+                       f"{json.dumps(_memory())}")
+            raise
         world_s[name] = round(time.perf_counter() - t, 1)
         groups_of_records += [(backend, list(recs)) for recs in zip(*res)]
     t = time.perf_counter()
@@ -1858,7 +1901,280 @@ def phase7(kind: str, power_limit: str, backend: str = "gloo",
             ranks=len(recs), card=kind, power_limit=power_limit, note=note,
             ok=path_ok, per_rank=recs)
     log("phase7", seconds=round(time.perf_counter() - t0, 1),
-        parts_s=world_s, launches=totals, ok=ok)
+        parts_s=world_s, launches=totals, memory=_memory(), ok=ok)
+    return ok, totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the sample twins, profiling and the host engine
+# ---------------------------------------------------------------------------
+
+SAMPLE_TWINS = ("torch_dpf_dcf_basic", "torch_dpf_batched_gpu",
+                "torch_dpf_packed_pipeline", "torch_vdpf_vdmpf_verified",
+                "torch_pir_gpu", "torch_dcf_mod_groups")
+NATIVE_BITS = 16            # the host engine against the card: Gen and
+NATIVE_LOG2_KEYS = 12       # Eval of 4096 keys at 16 bits, EvalAll of one
+NATIVE_EVAL_ALL_BITS = 20   # key at 20 bits, a VDPF at 4096 points, the
+NATIVE_VDPF_POINTS = 4096   # PRP at the VDMPF bench's domain
+NATIVE_RATE_LOG2_KEYS = 16  # the host rate: dpf_eval_batch of 2^16 keys
+NATIVE_RATE_REPS = 3
+PROFILE_DIR = REPO / "build" / "profile_trace"  # git-ignored
+DPF_EVAL_SYMBOL = "dpf_eval_kernel"  # csrc/dpf_eval.cu
+
+
+def sample_twins(dev) -> list:
+    """8a. Each sample twin's ``main`` on ``dev``, its output kept, the
+    launch counts zeroed before it and read after: one record a twin. A
+    twin that raises is recorded with its traceback."""
+    from fss_tpu_torch import _build
+    recs = []
+    for name in SAMPLE_TWINS:
+        mod = importlib.import_module(f"samples.{name}")
+        out, error = io.StringIO(), None
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                mod.main(dev.type)
+        except Exception:  # recorded; the phase fails
+            error = traceback.format_exc()
+        counts = {k: _build.launches[k] for k in mod.KERNELS}
+        lines = out.getvalue().splitlines()
+        ok = (error is None and all(counts.values()) and bool(lines)
+              and lines[-1].endswith("OK"))
+        recs.append({"sample": f"samples/{name}.py", "ok": ok,
+                     "seconds": round(time.perf_counter() - t0, 3),
+                     "launches": counts, "output": lines, "error": error})
+    return recs
+
+
+def profile_check(ev, dev) -> dict:
+    """8b. ``profile_trace`` around one call of ``ev``: the trace it wrote
+    must hold the DPF Eval kernel under its symbol."""
+    from fss_tpu_torch.utils import profile_trace
+    ev()
+    torch.cuda.synchronize()
+    log_dir = PROFILE_DIR / f"run-{os.getpid()}-{time.time_ns()}"
+    with profile_trace(log_dir, device=dev.type):
+        ev()
+    (trace,) = log_dir.glob("*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if DPF_EVAL_SYMBOL in e.get("name", "")]
+    return {"trace": str(trace.relative_to(REPO)),
+            "trace_bytes": trace.stat().st_size, "events": len(events),
+            "kernel_events": sorted({e["name"] for e in kernels}),
+            "dpf_eval_symbol_found": bool(ours),
+            "dpf_eval_trace_us": [e.get("dur") for e in ours],
+            "ok": bool(ours)}
+
+
+def host_vs_card(eng, dev, rng) -> dict:
+    """8d. The host engine and the card on the same inputs, byte for byte:
+    {check: equal}. DPF, DCF (lt) and Half-Tree Gen and Eval of
+    2^NATIVE_LOG2_KEYS keys at NATIVE_BITS (key i at point i, half the
+    points at alpha) and EvalAll of one key at NATIVE_EVAL_ALL_BITS, each
+    with ChaCha and AES-128-MMO; a VDPF (ChaCha, BLAKE3): Gen, eval_batch
+    of both parties at NATIVE_VDPF_POINTS points and the proof; the PRP
+    over the VDMPF bench's domain against its permutation table."""
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups, native
+    from fss_tpu_torch.api import Dcf, Dpf, HalfTreeDpf, Vdpf
+    from fss_tpu_torch.hash import Blake3
+    from fss_tpu_torch.prg.aes import AesMmo
+    from fss_tpu_torch.prg.chacha import ChaCha
+    from fss_tpu_torch.prp.feistel import Aes128Feistel
+
+    g, u32 = groups.Uint(32), (native.GROUP_UINT, 32)
+    n, keys, ea = NATIVE_BITS, 1 << NATIVE_LOG2_KEYS, NATIVE_EVAL_ALL_BITS
+    s0s = rng.integers(0, 2**32, size=(keys, 2, 4), dtype=np.uint32)
+    alphas = rng.integers(0, 2**n, size=keys, dtype=np.uint32)
+    betas = rng.integers(0, 2**32, size=(keys, 4), dtype=np.uint32)
+    xs = rng.integers(0, 2**n, size=keys, dtype=np.uint32)
+    xs[::2] = alphas[::2]
+    hk = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    ea_alpha = np.array([rng.integers(0, 2**ea)], dtype=np.uint32)
+
+    def equal(card, host) -> bool:
+        if isinstance(card, tuple):
+            return all(equal(c, h) for c, h in zip(card, host))
+        return torch.equal(card.cpu(), host)
+
+    checks = {}
+    for prg_name, kind in (("chacha", native.PRG_CHACHA),
+                           ("aes", native.PRG_AES128_MMO)):
+        def prg(mul):
+            if kind == native.PRG_CHACHA:
+                return ChaCha(mul, NONCE), {"nonce": NONCE}
+            return AesMmo(mul, AES_KEYS[:mul]), {"aes_keys": AES_KEYS[:mul]}
+
+        for scheme in ("dpf", "dcf"):
+            P, kw = prg(2 if scheme == "dpf" else 4)
+            pred = ("lt",) if scheme == "dcf" else ()
+            d, e = ((Dpf(b, g, P, device=dev) if scheme == "dpf" else
+                     Dcf(b, g, P, pred="lt", device=dev)) for b in (n, ea))
+            gen_batch, eval1, eval_all = (getattr(eng, f"{scheme}_{f}") for f
+                                          in ("gen_batch", "eval",
+                                              "eval_all"))
+            cws = gen_batch(n, kind, *u32, *pred, s0s, alphas, betas, **kw)
+            tag = f"{scheme} {prg_name}"
+            checks[f"{tag} gen"] = equal(d.gen_batch(s0s, alphas, betas),
+                                         cws)
+            for p in (0, 1):
+                if scheme == "dpf":
+                    host = eng.dpf_eval_batch(n, kind, *u32, p, s0s[:, p],
+                                              cws, xs, **kw)
+                else:
+                    host = torch.cat([eval1(n, kind, *u32, p, s0s[i, p],
+                                            cws[i], xs[i:i + 1], **kw)
+                                      for i in range(keys)])
+                checks[f"{tag} eval party {p}"] = equal(
+                    d.eval(p, s0s[:, p], cws, xs), host)
+            key = gen_batch(ea, kind, *u32, *pred, s0s[:1], ea_alpha,
+                            betas[:1], **kw)
+            checks[f"{tag} gen at {ea} bits"] = equal(
+                e.gen_batch(s0s[:1], ea_alpha, betas[:1]), key)
+            checks[f"{tag} eval_all {ea} bits"] = equal(
+                e.eval_all(1, s0s[0, 1], key[0]),
+                eval_all(ea, kind, *u32, 1, s0s[0, 1], key[0], **kw))
+
+        P, kw = prg(1)
+        d, e = (HalfTreeDpf(b, g, P, hash_key=hk, device=dev)
+                for b in (n, ea))
+        cws, ocw = eng.ht_gen_batch(n, kind, *u32, hk, s0s, alphas, betas,
+                                    **kw)
+        tag = f"half_tree {prg_name}"
+        checks[f"{tag} gen"] = equal(d.gen_batch(s0s, alphas, betas),
+                                     (cws, ocw))
+        for p in (0, 1):
+            host = torch.cat([eng.ht_eval(n, kind, *u32, p, hk, s0s[i, p],
+                                          cws[i], ocw[i], xs[i:i + 1], **kw)
+                              for i in range(keys)])
+            checks[f"{tag} eval party {p}"] = equal(
+                d.eval(p, s0s[:, p], cws, ocw, xs), host)
+        key = eng.ht_gen_batch(ea, kind, *u32, hk, s0s[:1], ea_alpha,
+                               betas[:1], **kw)
+        checks[f"{tag} gen at {ea} bits"] = equal(
+            e.gen_batch(s0s[:1], ea_alpha, betas[:1]), key)
+        checks[f"{tag} eval_all {ea} bits"] = equal(
+            e.eval_all(1, s0s[0, 1], key[0][0], key[1][0]),
+            eng.ht_eval_all(ea, kind, *u32, 1, hk, s0s[0, 1], key[0][0],
+                            key[1][0], **kw))
+
+    iv = np.asarray(VDPF_IV, dtype="<u4").tobytes()
+    vd = Vdpf(n, g, ChaCha(2, NONCE), hashes=Blake3(VDPF_IV), device=dev)
+    head = (n, native.PRG_CHACHA, 1, iv, *u32)
+    key = eng.vdpf_gen(*head, s0s[0], int(alphas[0]), betas[0], nonce=NONCE)
+    card = vd.gen(s0s[0], int(alphas[0]), betas[0])
+    checks["vdpf blake3 gen"] = (equal(card[:3], key[:3])
+                                 and int(card[3]) == key[3])
+    pxs = rng.integers(0, 2**n, size=NATIVE_VDPF_POINTS, dtype=np.uint32)
+    pxs[::64] = alphas[0]
+    for p in (0, 1):
+        ys, pts = eng.vdpf_eval_batch(*head, p, s0s[0, p], *key[:3], pxs,
+                                      nonce=NONCE)
+        cys, cpts = vd.eval(p, s0s[0, p], *card[:3], pxs)
+        checks[f"vdpf blake3 eval_batch party {p}"] = equal((cys, cpts),
+                                                            (ys, pts))
+        checks[f"vdpf blake3 prove party {p}"] = equal(
+            vd.prove(cpts, card[1]), eng.vdpf_prove(1, iv, pts, key[1]))
+
+    sigma = bytes(rng.integers(0, 256, size=16, dtype=np.uint8))
+    domain = 3 << VDMPF_BITS  # the VDMPF bench's n * kappa
+    table = Aes128Feistel(sigma, domain).permutation_table(dev)
+    checks[f"prp_permu_batch over {domain}"] = equal(
+        blk.u64(table), eng.prp_permu_batch(sigma, domain,
+                                            torch.arange(domain)))
+    return checks
+
+
+def host_rate(eng) -> dict:
+    """8e. The host engine's ``dpf_eval_batch`` of 2^NATIVE_RATE_LOG2_KEYS
+    keys at NATIVE_BITS (ChaCha mul=2, Uint(32)): evals/s over
+    NATIVE_RATE_REPS calls after one, on the host's clock."""
+    from fss_tpu_torch import native
+    rng = np.random.default_rng(15)
+    n, keys = NATIVE_BITS, 1 << NATIVE_RATE_LOG2_KEYS
+    head = (n, native.PRG_CHACHA, native.GROUP_UINT, 32)
+    s0s = rng.integers(0, 2**32, size=(keys, 2, 4), dtype=np.uint32)
+    alphas = rng.integers(0, 2**n, size=keys, dtype=np.uint32)
+    cws = eng.dpf_gen_batch(*head, s0s, alphas,
+                            rng.integers(0, 2**32, size=(keys, 4)),
+                            nonce=NONCE)
+    args = (*head, 0, torch.from_numpy(s0s[:, 0].copy().view(np.int32)),
+            cws, torch.from_numpy(alphas.astype(np.int64)))
+    eng.dpf_eval_batch(*args, nonce=NONCE)
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_RATE_REPS):
+        eng.dpf_eval_batch(*args, nonce=NONCE)
+    ms = (time.perf_counter() - t0) / NATIVE_RATE_REPS * 1e3
+    # The first processor's identity (a VM may report its model name as
+    # "unknown": the vendor, family and model numbers name it then).
+    cpu = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            if key.strip() in ("model name", "vendor_id", "cpu family",
+                               "model", "stepping", "cpu MHz"):
+                cpu[key.strip()] = value.strip()
+    return {"keys": keys, "in_bits": n, "prg": "ChaCha mul=2",
+            "group": "uint32", "ms": ms, "evals_per_s": keys / (ms / 1e3),
+            "host_cpu": cpu, "host_cpus": os.cpu_count(),
+            "engine_threads": 1, "flags": list(native.host_flags())}
+
+
+def phase8(S, dev, kind: str, power_limit: str, native_build) -> tuple:
+    """8. The six sample twins on the card (8a), ``profile_trace`` around
+    one Eval of the DPF main path's 2^20 keys (8b), ``throughput`` of that
+    Eval beside phase 6's CUDA-event rate (8c), the host engine against
+    the card (8d) and the host engine's rate (8e): one line each. ``S``:
+    the DPF main path's state, with phase 6's ``eval_ms``; native_build:
+    the future of the engine's g++ build, started in phase 2. Returns
+    (every part held, the twins' launches summed by kernel)."""
+    from fss_tpu_torch import native
+    from fss_tpu_torch.utils import throughput
+    t0 = time.perf_counter()
+    card = {"card": kind, "power_limit": power_limit}
+
+    twins = sample_twins(dev)
+    twins_ok = all(r["ok"] for r in twins)
+    totals = {}
+    for rec in twins:
+        for k, v in rec["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    log("sample_twins", **card, ok=twins_ok, twins=twins)
+
+    s0 = S["s0s"][:, 0].contiguous()
+
+    def ev():
+        return S["d"].eval(0, s0, S["cws"], S["xs"])
+
+    prof = profile_check(ev, dev)
+    log("profile_trace", **card, keys=S["nkeys"], in_bits=MAIN_BITS, **prof)
+
+    rate = throughput(lambda: ev().sum(), (), S["nkeys"])
+    phase6 = S["nkeys"] / (S["eval_ms"] / 1e3)
+    log("throughput", **card, keys=S["nkeys"], in_bits=MAIN_BITS,
+        items_per_s=rate, phase6_cuda_event_items_per_s=phase6,
+        ratio=rate / phase6)
+
+    t = time.perf_counter()
+    so = native_build.result()
+    eng = native.engine()
+    checks = host_vs_card(eng, dev, np.random.default_rng(8))
+    native_ok = all(checks.values())
+    log("host_engine_vs_card", **card, library=so.name,
+        build_wait_s=round(time.perf_counter() - t, 3), ok=native_ok,
+        checks=checks)
+
+    log("host_engine_rate", **card, **host_rate(eng),
+        card_eval_per_s_2e20_keys=phase6)
+
+    ok = twins_ok and prof["ok"] and native_ok
+    log("phase8", seconds=round(time.perf_counter() - t0, 1),
+        launches=totals, ok=ok)
     return ok, totals
 
 
@@ -1868,7 +2184,7 @@ def main() -> int:
         return 1
     from fss_tpu_torch import _build
     from fss_tpu_torch import block as blk
-    from fss_tpu_torch import groups
+    from fss_tpu_torch import groups, native
     from fss_tpu_torch.api import DEFAULT_HASH_IV, Dcf, Dpf, HalfTreeDpf, Vdpf
     from fss_tpu_torch.hash import Blake3, Sha256
     from fss_tpu_torch.ops import (blake3_cuda, dcf_cuda, dpf_cuda,
@@ -1916,6 +2232,10 @@ def main() -> int:
                 "operations" if t_ops >= t_bytes else "bytes")
 
     # 2. build -------------------------------------------------------------
+    # The host engine's g++ build (phase 8) runs beside nvcc's.
+    native_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    native_build = native_pool.submit(native.build)
+    native_pool.shutdown(wait=False)
     t0 = time.perf_counter()
     reports = _build.build()
     build_s = time.perf_counter() - t0
@@ -2978,7 +3298,7 @@ def main() -> int:
         gen_packed_ms = cuda_ms(lambda: d.gen_batch(
             M["s0s"], M["alphas"], M["betas"], layout="packed"),
                                 10) if scheme == "dpf" else None
-        eval_ms = cuda_ms(ev, 10)
+        eval_ms = M["eval_ms"] = cuda_ms(ev, 10)
         kfn, pfn, prg_args = {
             "dpf": (dpf_cuda.eval_packed, dpf_cuda.eval_packed_plain,
                     (P[2],)),
@@ -3182,6 +3502,15 @@ def main() -> int:
     for row in rows:
         row["launches_multi_device"] = multi.get(row["name"], 0)
         row["launches"] += row["launches_multi_device"]
+
+    # 8. The sample twins, profiling and the host engine; the twins'
+    # launches join each kernel's count (``launches_samples`` apart).
+    ok, twins = phase8(S, dev, kind, power_limit, native_build)
+    if not ok:
+        return 1
+    for row in rows:
+        row["launches_samples"] = twins.get(row["name"], 0)
+        row["launches"] += row["launches_samples"]
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -13,5 +13,8 @@ Entry points: ``fss_tpu_torch.api.Dpf``, ``Dcf``, ``HalfTreeDpf``,
 ``GrottoDcf``, ``Vdpf`` and ``Vdmpf``; ``fss_tpu_torch.parallel.mesh``
 (data- and domain-sharded runs over ``torch.distributed``, ranks started
 by torchrun or ``parallel.spawn``); ``fss_tpu_torch.crypto`` (the
-fss_crypto-parity ``Dpf`` and ``Dcf`` on int32 tensors).
+fss_crypto-parity ``Dpf`` and ``Dcf`` on int32 tensors);
+``fss_tpu_torch.native`` (the C++ host engine for every scheme, built by
+g++ at first use); ``fss_tpu_torch.utils`` (``profile_trace`` and
+``throughput``). ``samples/torch_*.py`` drive them as a user would.
 """

@@ -67,6 +67,17 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def launched(kernels, since: dict | None = None) -> dict:
+    """The launches of ``kernels`` since the last reset_launches(), or
+    since ``since`` (a copy of ``launches`` taken earlier). Raises
+    RuntimeError naming those that were not launched."""
+    counts = {k: launches[k] - (since or {}).get(k, 0) for k in kernels}
+    missing = [k for k, v in counts.items() if not v]
+    if missing:
+        raise RuntimeError(f"kernels not launched: {missing} ({counts})")
+    return counts
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

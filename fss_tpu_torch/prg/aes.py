@@ -93,12 +93,58 @@ def _bswap(x: torch.Tensor) -> torch.Tensor:
             | ((x << 8) & 0xFF0000) | ((x << 24) & 0xFF000000))
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+def _rotr(x, n: int):
     return ((x << (32 - n)) & MASK32) | (x >> n)
 
 
-def _lut(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+# Byte position p of a round reads word (i + p) % 4 of the state at bit
+# 24 - 8p, from the table at [256 p, 256 p + 256).
+_POS_WORDS = np.array([(i + p) % 4 for p in range(4) for i in range(4)])
+_POS_SHIFTS = np.array([24, 16, 8, 0]).reshape(4, 1, 1, 1)
+_POS_OFFSETS = 256 * np.arange(4).reshape(4, 1, 1, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> tuple:
+    """The round's tables on ``device``, int64 [1024] each: Te0 rotated
+    right by 8p at position p (rounds 1-9), the S-box shifted left by 24 -
+    8p (round 10); and the positions' words, shifts and offsets."""
+    te0 = TE0.astype(np.int64)
+    sbox = SBOX.astype(np.int64)
+    rounds = np.concatenate([te0 if p == 0 else _rotr(te0, 8 * p)
+                             for p in range(4)])
+    last = np.concatenate([sbox << (24 - 8 * p) for p in range(4)])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (rounds, last, _POS_WORDS, _POS_SHIFTS,
+                           _POS_OFFSETS))
+
+
+@functools.lru_cache(maxsize=64)
+def _round_key_words(round_keys: bytes, device: torch.device):
+    """[K, 11, 4] uint32 round-key words (bytes) -> int64 [11, 4, K, 1] on
+    ``device``."""
+    rk = np.frombuffer(round_keys, dtype=np.uint32).reshape(-1, 11, 4)
+    return torch.from_numpy(
+        rk.astype(np.int64).transpose(1, 2, 0)[..., None].copy()).to(device)
+
+
+def _encrypt(round_keys: np.ndarray, s: torch.Tensor) -> torch.Tensor:
+    """round_keys: [K, 11, 4] uint32; s: int64 [4, K, N], block n's
+    big-endian state words under key k at [:, k, n]. Returns the
+    ciphertext words, [4, K, N]: each round gathers its 16 table words a
+    block at once."""
+    rounds, last, words, shifts, offsets = _tables(s.device)
+    rk = _round_key_words(
+        np.ascontiguousarray(round_keys, dtype=np.uint32).tobytes(), s.device)
+    s = s ^ rk[0]
+    for r in range(1, 11):
+        idx = s.index_select(0, words).reshape((4,) + s.shape)
+        idx.bitwise_right_shift_(shifts).bitwise_and_(0xFF).add_(offsets)
+        t = (rounds if r < 10 else last).index_select(
+            0, idx.reshape(-1)).reshape(idx.shape)
+        s = t[0].bitwise_xor_(t[1]).bitwise_xor_(t[2]).bitwise_xor_(
+            t[3]).bitwise_xor_(rk[r])
+    return s
 
 
 def aes128_encrypt_words(round_keys: np.ndarray, state):
@@ -107,22 +153,9 @@ def aes128_encrypt_words(round_keys: np.ndarray, state):
     round_keys: [11, 4] numpy uint32; state: 4 int64 tensors of one shape,
     the block's big-endian words in [0, 2^32). Returns 4 such tensors.
     """
-    dev = state[0].device
-    te0 = torch.from_numpy(TE0.astype(np.int64)).to(dev)
-    sbox = torch.from_numpy(SBOX.astype(np.int64)).to(dev)
-    rk = [[int(w) for w in row] for row in round_keys]
-    s = [w ^ rk[0][i] for i, w in enumerate(state)]
-    for r in range(1, 10):
-        s = [_lut(te0, s[i] >> 24)
-             ^ _rotr(_lut(te0, (s[(i + 1) % 4] >> 16) & 0xFF), 8)
-             ^ _rotr(_lut(te0, (s[(i + 2) % 4] >> 8) & 0xFF), 16)
-             ^ _rotr(_lut(te0, s[(i + 3) % 4] & 0xFF), 24)
-             ^ rk[r][i] for i in range(4)]
-    return [((_lut(sbox, s[i] >> 24) << 24)
-             | (_lut(sbox, (s[(i + 1) % 4] >> 16) & 0xFF) << 16)
-             | (_lut(sbox, (s[(i + 2) % 4] >> 8) & 0xFF) << 8)
-             | _lut(sbox, s[(i + 3) % 4] & 0xFF)) ^ rk[10][i]
-            for i in range(4)]
+    shape = state[0].shape
+    s = torch.stack([w.reshape(-1) for w in state])[:, None]
+    return [w.reshape(shape) for w in _encrypt(round_keys[None], s)[:, 0]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,13 +186,12 @@ class AesMmo:
 
     def __call__(self, seed: torch.Tensor):
         lanes = blk.u64(seed)
-        state = [_bswap(lanes[..., i]) for i in range(4)]
-        outs = []
-        for rk in self.round_keys:
-            enc = aes128_encrypt_words(rk, state)
-            outs.append(blk.i32(torch.stack([_bswap(w) for w in enc], -1)
-                                ^ lanes))
-        return tuple(outs)
+        # The mul keys' encryptions of every block in one batch.
+        s = _bswap(lanes.reshape(-1, 4).T)[:, None]
+        enc = _encrypt(self.round_keys, s.expand(4, self.mul, s.shape[-1]))
+        outs = _bswap(enc).permute(1, 2, 0).contiguous().reshape(
+            (self.mul,) + lanes.shape) ^ lanes
+        return tuple(blk.i32(o) for o in outs)
 
 
 def aes128_encrypt_reference(key16: bytes, block16: bytes) -> bytes:

@@ -63,12 +63,17 @@ def test_chacha_rejects_bad_parameters():
 
 
 def test_port_imports_no_jax():
-    """Every module of the package (walked, so the list cannot go stale)
-    and chip_smoke import neither JAX nor anything of fss_tpu."""
-    code = ("import importlib, pkgutil, sys, fss_tpu_torch, chip_smoke; "
+    """Every module of the package (walked, so the list cannot go stale),
+    chip_smoke and the six sample twins (``samples/torch_*.py``) import
+    neither JAX nor anything of fss_tpu."""
+    code = ("import importlib, pathlib, pkgutil, sys, fss_tpu_torch, "
+            "chip_smoke; "
             "mods = [m.name for m in pkgutil.walk_packages("
             "fss_tpu_torch.__path__, 'fss_tpu_torch.')]; "
-            "[importlib.import_module(m) for m in mods]; "
+            "twins = sorted('samples.' + p.stem for p in "
+            "pathlib.Path('samples').glob('torch_*.py')); "
+            "assert len(twins) == 6, twins; "
+            "[importlib.import_module(m) for m in mods + twins]; "
             "assert len(mods) >= 15, mods; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'fss_tpu' "
