@@ -1,0 +1,8 @@
+"""idle_share.gen: percent of the traced window with no device activity
+(device trace)."""
+
+from port_bench import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
