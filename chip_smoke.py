@@ -93,12 +93,13 @@ Phases, each printing one line (any failure exits non-zero):
      twins (``samples/torch_*.py``) on the card, each with its kernels'
      launch counts; (b) ``utils.profile_trace`` around one Eval of the
      DPF main path's 2^20 keys, its trace read back for the Eval kernel's
-     symbol; (c) ``utils.throughput`` of that Eval beside phase 6's
-     CUDA-event rate; (d) the host engine (``fss_tpu_torch.native``, its
+     symbol and for the ``launch.dpf_eval`` span around the runtime call
+     that launched it (the spans' clock mapped onto the trace's; the
+     offsets logged); (c) the host engine (``fss_tpu_torch.native``, its
      g++ build started beside nvcc's in phase 2) against the card byte
      for byte: DPF, DCF and Half-Tree Gen and Eval of 4096 keys at 16
      bits and EvalAll of one key at 20, with ChaCha and AES-128-MMO, a
-     VDPF with BLAKE3, the PRP against its permutation table; (e) the
+     VDPF with BLAKE3, the PRP against its permutation table; (d) the
      host engine's DPF Eval rate, with the host CPU's model.
 
 The last lines are the kernels JSON line (each kernel's launches include
@@ -1950,7 +1951,11 @@ def sample_twins(dev) -> list:
 
 def profile_check(ev, dev) -> dict:
     """8b. ``profile_trace`` around one call of ``ev``: the trace it wrote
-    must hold the DPF Eval kernel under its symbol."""
+    must hold the DPF Eval kernel under its symbol, and the runtime call
+    that launched it (by ``correlation``) must lie inside the span
+    ``launch.dpf_eval`` on the trace's clock: the check that the spans'
+    clock and the profiler's agree. Logs the call's offsets from the
+    span's start and to its end, us."""
     from fss_tpu_torch.utils import profile_trace
     ev()
     torch.cuda.synchronize()
@@ -1961,16 +1966,30 @@ def profile_check(ev, dev) -> dict:
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     ours = [e for e in kernels if DPF_EVAL_SYMBOL in e.get("name", "")]
+    corr = {e.get("args", {}).get("correlation") for e in ours}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("args", {}).get("correlation") in corr]
+    spans = [e for e in events if e.get("cat") == "port_span"
+             and e.get("name") == "launch.dpf_eval"]
+    offsets = [[c["ts"] - s["ts"], s["ts"] + s["dur"] - c["ts"] - c["dur"]]
+               for c in calls for s in spans]
+    inside = bool(calls) and len(spans) == 1 and all(
+        a >= 0 and b >= 0 for a, b in offsets)
     return {"trace": str(trace.relative_to(REPO)),
             "trace_bytes": trace.stat().st_size, "events": len(events),
             "kernel_events": sorted({e["name"] for e in kernels}),
             "dpf_eval_symbol_found": bool(ours),
             "dpf_eval_trace_us": [e.get("dur") for e in ours],
-            "ok": bool(ours)}
+            "launch_calls": [c["name"] for c in calls],
+            "port_spans": sorted(e["name"] for e in events
+                                 if e.get("cat") == "port_span"),
+            "launch_in_span": inside,
+            "launch_offsets_us": offsets,
+            "ok": bool(ours) and inside}
 
 
 def host_vs_card(eng, dev, rng) -> dict:
-    """8d. The host engine and the card on the same inputs, byte for byte:
+    """8c. The host engine and the card on the same inputs, byte for byte:
     {check: equal}. DPF, DCF (lt) and Half-Tree Gen and Eval of
     2^NATIVE_LOG2_KEYS keys at NATIVE_BITS (key i at point i, half the
     points at alpha) and EvalAll of one key at NATIVE_EVAL_ALL_BITS, each
@@ -2089,7 +2108,7 @@ def host_vs_card(eng, dev, rng) -> dict:
 
 
 def host_rate(eng) -> dict:
-    """8e. The host engine's ``dpf_eval_batch`` of 2^NATIVE_RATE_LOG2_KEYS
+    """8d. The host engine's ``dpf_eval_batch`` of 2^NATIVE_RATE_LOG2_KEYS
     keys at NATIVE_BITS (ChaCha mul=2, Uint(32)): evals/s over
     NATIVE_RATE_REPS calls after one, on the host's clock."""
     from fss_tpu_torch import native
@@ -2127,14 +2146,13 @@ def host_rate(eng) -> dict:
 
 def phase8(S, dev, kind: str, power_limit: str, native_build) -> tuple:
     """8. The six sample twins on the card (8a), ``profile_trace`` around
-    one Eval of the DPF main path's 2^20 keys (8b), ``throughput`` of that
-    Eval beside phase 6's CUDA-event rate (8c), the host engine against
-    the card (8d) and the host engine's rate (8e): one line each. ``S``:
+    one Eval of the DPF main path's 2^20 keys, its launch inside its span
+    (8b), the host engine against the card (8c) and the host engine's
+    rate (8d): one line each. ``S``:
     the DPF main path's state, with phase 6's ``eval_ms``; native_build:
     the future of the engine's g++ build, started in phase 2. Returns
     (every part held, the twins' launches summed by kernel)."""
     from fss_tpu_torch import native
-    from fss_tpu_torch.utils import throughput
     t0 = time.perf_counter()
     card = {"card": kind, "power_limit": power_limit}
 
@@ -2154,11 +2172,7 @@ def phase8(S, dev, kind: str, power_limit: str, native_build) -> tuple:
     prof = profile_check(ev, dev)
     log("profile_trace", **card, keys=S["nkeys"], in_bits=MAIN_BITS, **prof)
 
-    rate = throughput(lambda: ev().sum(), (), S["nkeys"])
     phase6 = S["nkeys"] / (S["eval_ms"] / 1e3)
-    log("throughput", **card, keys=S["nkeys"], in_bits=MAIN_BITS,
-        items_per_s=rate, phase6_cuda_event_items_per_s=phase6,
-        ratio=rate / phase6)
 
     t = time.perf_counter()
     so = native_build.result()

@@ -15,6 +15,7 @@ Entry points: ``fss_tpu_torch.api.Dpf``, ``Dcf``, ``HalfTreeDpf``,
 by torchrun or ``parallel.spawn``); ``fss_tpu_torch.crypto`` (the
 fss_crypto-parity ``Dpf`` and ``Dcf`` on int32 tensors);
 ``fss_tpu_torch.native`` (the C++ host engine for every scheme, built by
-g++ at first use); ``fss_tpu_torch.utils`` (``profile_trace`` and
-``throughput``). ``samples/torch_*.py`` drive them as a user would.
+g++ at first use); ``fss_tpu_torch.utils`` (``profile_trace``, and the
+spans at the layers' boundaries, ``record``). ``samples/torch_*.py``
+drive them as a user would.
 """

@@ -34,6 +34,7 @@ import torch
 
 from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.utils.profiling import span
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -147,10 +148,16 @@ def function(source: str, symbol: str, argtypes):
     return fn
 
 
+def _launch_span(source, *args, kernel=None, **kwargs) -> str:
+    return f"launch.{kernel or source}"
+
+
+@span(_launch_span)
 def launch(source: str, fn, *args, device: torch.device,
            kernel: str | None = None) -> None:
     """Call a C entry point on ``device``'s current stream, raise if the
-    launch failed, and count it under ``kernel`` (default: the source)."""
+    launch failed, and count it under ``kernel`` (default: the source).
+    Recorded as the span ``launch.<kernel>``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)

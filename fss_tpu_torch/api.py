@@ -35,6 +35,7 @@ from fss_tpu_torch.schemes import cuckoo as _cuckoo
 from fss_tpu_torch.schemes import grotto_dcf as _grotto
 from fss_tpu_torch.schemes import vdmpf as _vdmpf
 from fss_tpu_torch.schemes import vdpf as _vdpf
+from fss_tpu_torch.utils.profiling import span
 
 DEFAULT_NONCE = (0x243F6A88, 0x85A308D3)  # pi digits; nothing up my sleeve
 DEFAULT_HASH_IV = (0x11111111, 0x22222222, 0x33333333, 0x44444444,
@@ -127,6 +128,7 @@ class Dpf(_TreeScheme):
 
     # -- scheme -------------------------------------------------------------
 
+    @span("api.Dpf.gen_batch")
     def gen_batch(self, s0s, alphas, betas, layout: str = "wire"):
         """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
         (or [B, 4] lanes, or a list of ints), betas [B, 4].
@@ -143,6 +145,7 @@ class Dpf(_TreeScheme):
                              f"{layout}")
         return dpf_cuda.gen_batch(*args)
 
+    @span("api.Dpf.eval")
     def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
         """Point evaluation. s0 [B, 4] or [4]; cws wire rows
         [B, in_bits+1, 8], one key [in_bits+1, 8], or PackedDpfKeys; xs
@@ -182,6 +185,7 @@ class Dcf(_TreeScheme):
             raise ValueError(f"pred must be 'lt' or 'gt', got {pred!r}")
         self.pred = pred
 
+    @span("api.Dcf.gen_batch")
     def gen_batch(self, s0s, alphas, betas) -> torch.Tensor:
         """Batched Gen through the gen kernel: s0s [B, 2, 4], alphas [B]
         (or [B, 4] lanes, or a list of ints), betas [B, 4]. Returns wire
@@ -190,6 +194,7 @@ class Dcf(_TreeScheme):
                                   self.pred, self._blocks(s0s),
                                   self._inputs(alphas), self._blocks(betas))
 
+    @span("api.Dcf.eval")
     def eval(self, party: int, s0, cws, xs) -> torch.Tensor:
         """Point evaluation. s0 [B, 4] or [4]; cws wire rows
         [B, in_bits+1, 8] or one key [in_bits+1, 8]; xs ints, an int

@@ -39,6 +39,7 @@ from fss_tpu_torch.block import MASK32, i32, u64
 from fss_tpu_torch.groups import MODES, bits_mask, gen_params, group_mode
 from fss_tpu_torch.ops.dpf_cuda import _device, _x_lanes
 from fss_tpu_torch.schemes import dcf as _dcf
+from fss_tpu_torch.utils.profiling import span
 
 FULL = (MASK32,) * 4
 NOT_ONE = MASK32 ^ 1
@@ -144,6 +145,7 @@ def acc_to_value(group, v_raw: torch.Tensor) -> torch.Tensor:
     return i32(cond_sub(groups._add128(lo, r)))
 
 
+@span("ops.dcf.finalize")
 def finalize(group, party: int, vo, so, t, v_last) -> torch.Tensor:
     """Group-convert kernel outputs to [B, 4] shares:
     y = +-(acc_to_value(vo) + s + (t ? v_last : 0)). ``v_last`` is [4] or
@@ -179,6 +181,7 @@ def _check_eval(s0, cws, xs, in_bits, party, group_mode):
     return dev
 
 
+@span("ops.dcf.eval_packed")
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
                 in_bits: int, party: int, prg, group_mode: str = "wrap",
                 vmask=FULL):
@@ -255,6 +258,7 @@ def _check_gen(s0s, alphas, betas, in_bits, pred):
     return dev
 
 
+@span("ops.dcf.gen_packed")
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
                in_bits: int, prg, pred: str, group) -> torch.Tensor:
     """Every level of DCF Gen, and the final value CW, for a batch of keys,

@@ -35,6 +35,7 @@ from fss_tpu_torch import _build
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.schemes import dpf as _dpf
+from fss_tpu_torch.utils.profiling import span
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.P, _build.I64, _build.P, _build.P,
@@ -78,6 +79,7 @@ def _check_eval(s0, cws, xs, in_bits, party, packed):
     return dev
 
 
+@span("ops.dpf.eval_packed")
 def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
                 in_bits: int, party: int, prg, packed: bool = False):
     """The DPF tree walk for a batch of keys, with ``prg`` (ChaCha or
@@ -128,6 +130,7 @@ def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
     return _dpf.walk(prg, in_bits, party, s0.expand(B, 4), cw_level, x_bits)
 
 
+@span("ops.dpf.finalize")
 def finalize(group, party: int, so: torch.Tensor, t: torch.Tensor,
              ocw: torch.Tensor) -> torch.Tensor:
     """Group-convert kernel outputs to [B, 4] shares."""
@@ -190,6 +193,7 @@ def _check_gen(s0s, alphas, in_bits, layout, ocw_row, betas, group):
     return dev
 
 
+@span("ops.dpf.gen_packed")
 def gen_packed(s0s: torch.Tensor, alphas: torch.Tensor, in_bits: int, prg,
                layout: str = "wire", ocw_row: bool = True, betas=None,
                group=None):

@@ -1,6 +1,7 @@
-"""Profiling helpers: a ``torch.profiler`` trace around a block, and the
-items/s of a step that returns a checksum."""
+"""Profiling: spans at the port's layer boundaries (``span``, kept by
+``record``) and a ``torch.profiler`` trace around a block
+(``profile_trace``), the spans written into it."""
 
-from fss_tpu_torch.utils.profiling import profile_trace, throughput
+from fss_tpu_torch.utils.profiling import profile_trace, record, span
 
-__all__ = ["profile_trace", "throughput"]
+__all__ = ["profile_trace", "record", "span"]

@@ -1,6 +1,6 @@
 """The port's host engine (``fss_tpu_torch.native``) against the CUDA
 kernels on the same inputs, byte for byte (tolerance 0: integer crypto):
-``chip_smoke.host_vs_card``, the checks of its phase 8 (d), at small
+``chip_smoke.host_vs_card``, the checks of its phase 8 (c), at small
 sizes: DPF, DCF and Half-Tree Gen, Eval and EvalAll with ChaCha and
 AES-128-MMO, a VDPF's Gen, eval_batch and proof with BLAKE3, and the PRP
 against its permutation table on the card; and a CUDA tensor given to the

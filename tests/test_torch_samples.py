@@ -1,7 +1,8 @@
 """The six sample twins (``samples/torch_*.py``) run in-process on the CPU
 (``main("cpu")``: the plain PyTorch versions), each printing the success
-lines of its JAX sample; and the port's profiling helpers
-(``fss_tpu_torch.utils``). The twins on the card: ``chip_smoke.py``
+lines of its JAX sample; and the port's trace of a block
+(``fss_tpu_torch.utils.profile_trace``; its spans:
+``tests/test_torch_spans.py``). The twins on the card: ``chip_smoke.py``
 phase 8."""
 
 import importlib
@@ -11,7 +12,7 @@ import pathlib
 import pytest
 import torch
 
-from fss_tpu_torch.utils import profile_trace, throughput
+from fss_tpu_torch.utils import profile_trace
 from torch_threads import one_torch_thread  # noqa: F401
 
 # Each twin and its success lines on the CPU, each given by the pieces it
@@ -46,21 +47,6 @@ def test_sample_twin(name, capsys):
     assert len(lines) == len(SAMPLES[name]), lines
     for line, pieces in zip(lines, SAMPLES[name]):
         assert all(piece in line for piece in pieces), (line, pieces)
-
-
-def test_throughput():
-    """One warm-up step and ``iters`` more, the checksum of each returned
-    and only the last fetched."""
-    calls = []
-
-    def step(x):
-        calls.append(1)
-        return (x * 3).sum()
-
-    rate = throughput(step, (torch.arange(1000),), 1000, iters=5)
-    assert rate > 0 and len(calls) == 6
-    throughput(step, (torch.arange(10),), 10, iters=3, warmup=False)
-    assert len(calls) == 9
 
 
 def test_profile_trace_cpu(tmp_path):
