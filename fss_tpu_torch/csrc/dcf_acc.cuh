@@ -19,7 +19,9 @@
 //
 // Party negation distributes over the sum, so it is left to the finalize,
 // which acc_value starts: the raw sum -> its group value (the device form of
-// fss_tpu_torch/ops/dcf_cuda.py:acc_to_value).
+// fss_tpu_torch/ops/dcf_cuda.py:acc_to_value). dcf_share is the whole
+// finalize of one leaf (ops/dcf_cuda.py:finalize), the epilogue of both
+// kernels.
 
 #pragma once
 
@@ -101,6 +103,28 @@ __device__ __forceinline__ void acc_value(const Group& g,
       set_lo64(v, add_mod64(lo64(v) % m, h, m));
     }
   }
+}
+
+// The share of a leaf with final seed s (clamped bit clear), control bit t
+// and raw accumulator acc, as a block:
+//   y = +-(acc_value(acc) + from_block(s) (+ vl where t)),
+// negated for party 1; vl = from_block(v_last), v_last the final value CW
+// (cws row n words 4-7), read only where t is set.
+template <int M>
+__device__ __forceinline__ int4 dcf_share(const Group& g,
+                                          const uint32_t acc[Acc<M>::kWords],
+                                          const uint32_t s[4], uint32_t t,
+                                          const uint32_t vl[4],
+                                          uint32_t party) {
+  uint32_t y[4];
+  acc_value<M>(g, acc, y);
+  uint32_t term[4] = {s[0], s[1], s[2], s[3]};
+  from_block<M>(g, term);
+  if (t) gadd<M>(g, term, vl);
+  gadd<M>(g, y, term);
+  if (party) gneg<M>(g, y);
+  into_block<M>(y);
+  return make_int4((int)y[0], (int)y[1], (int)y[2], (int)y[3]);
 }
 
 }  // namespace fss

@@ -26,6 +26,16 @@
 // whole walk so nothing but the key bytes touches memory. The cw is addressed
 // through three strides (level, word, key), so the kernel streams wire rows [B,
 // n+1, 8] in place or one broadcast key (key stride 0).
+//
+// Two epilogues, chosen by a kernel argument (shares null or not), not a
+// template parameter, so the source builds 20 kernels, not 40:
+//   raw     the accumulator (16 B, 20 for kMod128np), the final seed (16 B)
+//           and t (4 B) a key, 36-40 B, for ops/dcf_cuda.py:finalize;
+//   shares  the finished share, 16 B a key: dcf_share (dcf_acc.cuh), the
+//           epilogue of dcf_eval_all.cu's leaves, with v_last read from the
+//           key's row n (words 4-7) where t is set. Its work is ~40 ALU
+//           ops a key for wrap and xor groups (~0.2% of a 20-level ChaCha
+//           walk's), up to three 127-135-step long divisions for kMod128np.
 
 #include <cuda_runtime.h>
 
@@ -45,9 +55,10 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
                                 const uint32_t* __restrict__ xs,
                                 uint32_t* __restrict__ vo,
                                 int4* __restrict__ so,
-                                int32_t* __restrict__ t_out, int64_t batch,
+                                int32_t* __restrict__ t_out,
+                                int4* __restrict__ shares, int64_t batch,
                                 int in_bits, int party, uint4 vmask4,
-                                const Prg prg) {
+                                fss::Group g, const Prg prg) {
   constexpr int kAcc = fss::Acc<M>::kWords;
   prg.init();  // before any thread leaves: AES fills its shared tables
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -97,6 +108,17 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
     s[3] &= ~1u;
     t = bit ? tr : tl;
   }
+  if (shares != nullptr) {
+    uint32_t vl[4] = {0u, 0u, 0u, 0u};
+    if (t) {
+      const uint32_t* c = key + in_bits * cw_ls + 4 * cw_ws;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) vl[w] = __ldg(c + w * cw_ws);
+      fss::from_block<M>(g, vl);
+    }
+    shares[k] = fss::dcf_share<M>(g, acc, s, t, vl, (uint32_t)party);
+    return;
+  }
 #pragma unroll
   for (int w = 0; w < kAcc; ++w) vo[k * kAcc + w] = acc[w];
   so[k] = make_int4((int)s[0], (int)s[1], (int)s[2], (int)s[3]);
@@ -106,15 +128,16 @@ __global__ void dcf_eval_kernel(const uint32_t* __restrict__ seeds,
 template <bool kWide, int M, class Prg>
 int launch(const void* seeds, int64_t seed_ks, const void* cws,
             int64_t cw_ls, int64_t cw_ws, int64_t cw_ks, const void* xs,
-            void* vo, void* so, void* t_out, int64_t batch, int in_bits,
-            int party, uint4 vmask, const Prg& prg, cudaStream_t stream) {
+            void* vo, void* so, void* t_out, void* shares, int64_t batch,
+            int in_bits, int party, uint4 vmask, const fss::Group& g,
+            const Prg& prg, cudaStream_t stream) {
   const int threads = 128;
   const int64_t blocks = (batch + threads - 1) / threads;
   return fss::launch_kernel<Prg>(
       dcf_eval_kernel<kWide, M, Prg>, (unsigned)blocks, threads, stream,
       (const uint32_t*)seeds, seed_ks, (const uint32_t*)cws, cw_ls, cw_ws,
       cw_ks, (const uint32_t*)xs, (uint32_t*)vo, (int4*)so, (int32_t*)t_out,
-      batch, in_bits, party, vmask, prg);
+      (int4*)shares, batch, in_bits, party, vmask, g, prg);
 }
 
 }  // namespace
@@ -123,23 +146,30 @@ int launch(const void* seeds, int64_t seed_ks, const void* cws,
 // cws: word w of level i of key k at cws[i * cw_ls + w * cw_ws + k * cw_ks].
 // xs: [B] words (wide = 0, in_bits <= 32) or [B, 4] lanes (wide = 1).
 // mode: fss::Mode; vmask0..3: the contribution mask of kMod64 / kMod128*.
-// vo: [B, 5] for kMod128np, else [B, 4]; so: [B, 4] final seeds (clamped
-// bit clear); t_out: [B] control bits.
+// shares null (raw): vo [B, 5] for kMod128np, else [B, 4]; so [B, 4] final
+// seeds (clamped bit clear); t_out [B] control bits.
+// shares not null: shares [B, 4] get the party's shares and vo, so, t_out
+// are not written; mask0..3 and mod0..3: fss::Group
+// (ops/dcf_cuda.py:gen_params), read only then.
 // prg: a host fss::PrgArg (ChaCha or AES-MMO with 4 keys).
 extern "C" int fss_dcf_eval(const void* seeds, int64_t seed_ks,
                             const void* cws, int64_t cw_ls, int64_t cw_ws,
                             int64_t cw_ks, const void* xs, int wide, void* vo,
-                            void* so, void* t_out, int64_t batch, int in_bits,
-                            int party, int mode, uint32_t vmask0,
-                            uint32_t vmask1, uint32_t vmask2, uint32_t vmask3,
+                            void* so, void* t_out, void* shares,
+                            int64_t batch, int in_bits, int party, int mode,
+                            uint32_t vmask0, uint32_t vmask1, uint32_t vmask2,
+                            uint32_t vmask3, uint32_t mask0, uint32_t mask1,
+                            uint32_t mask2, uint32_t mask3, uint32_t mod0,
+                            uint32_t mod1, uint32_t mod2, uint32_t mod3,
                             const void* prg, void* stream) {
   if (batch <= 0) return 0;
   const uint4 vmask = make_uint4(vmask0, vmask1, vmask2, vmask3);
+  const fss::Group g = {{mask0, mask1, mask2, mask3}, {mod0, mod1, mod2, mod3}};
   cudaStream_t st = (cudaStream_t)stream;
   return fss::with_prg<4, AesTables>(prg, [&](auto p) {
 #define FSS_DCF_EVAL(W, M)                                                  \
   return launch<W, M>(seeds, seed_ks, cws, cw_ls, cw_ws, cw_ks, xs, vo, so, \
-                      t_out, batch, in_bits, party, vmask, p, st)
+                      t_out, shares, batch, in_bits, party, vmask, g, p, st)
 #define FSS_DCF_EVAL_MODES(W)                           \
   switch (mode) {                                       \
     case fss::kXor: FSS_DCF_EVAL(W, fss::kXor);         \

@@ -21,7 +21,8 @@
 // q expands root q breadth-first in shared memory, accumulators beside the
 // seeds, and its epilogue writes each leaf's share once:
 //   y = +-(acc_value(acc) + from_block(s) (+ from_block(v_last) where t)),
-// v_last = cws row n words 4-7, in the group (acc_value: dcf_acc.cuh). Which
+// v_last = cws row n words 4-7, in the group (dcf_acc.cuh: dcf_share, which
+// dcf_eval.cu's shares epilogue runs too). Which
 // of the two epilogues runs is a kernel argument, not a template parameter,
 // so the source builds 10 kernels, not 20.
 //
@@ -120,15 +121,8 @@ struct DcfTree {
   }
 
   __device__ __forceinline__ int4 share(const Node& v) const {
-    uint32_t y[4];
-    fss::acc_value<M>(g, v.acc, y);
-    uint32_t term[4] = {v.s.x, v.s.y, v.s.z, v.s.w & ~1u};
-    fss::from_block<M>(g, term);
-    if (v.s.w & 1u) fss::gadd<M>(g, term, vl);
-    fss::gadd<M>(g, y, term);
-    if (party) fss::gneg<M>(g, y);
-    fss::into_block<M>(y);
-    return make_int4((int)y[0], (int)y[1], (int)y[2], (int)y[3]);
+    const uint32_t s[4] = {v.s.x, v.s.y, v.s.z, v.s.w & ~1u};
+    return fss::dcf_share<M>(g, v.acc, s, v.s.w & 1u, vl, party);
   }
 
   __device__ __forceinline__ void leaves(int j, const Node& l,

@@ -18,10 +18,14 @@ with. Both kernels take every group of the port and every ``in_bits`` in
 (``groups.group_mode``: xor, wrap, mod64, mod128, mod128np).
 
 The Eval kernel accumulates the path value raw in that mode (a 5-word
-exact sum for mod128np, 4 words otherwise; ``csrc/dcf_acc.cuh``), and
-:func:`finalize`, elementwise torch glue as in the JAX package, turns it
-into the share. The Gen kernel does the group arithmetic itself
-(``csrc/group.cuh``) and writes whole wire rows [B, in_bits+1, 8].
+exact sum for mod128np, 4 words otherwise; ``csrc/dcf_acc.cuh``). On the
+card :func:`eval_points` is one launch, :func:`eval_shares`: the kernel's
+epilogue turns the accumulator, final seed and t into the share
+(``dcf_acc.cuh: dcf_share``). :func:`eval_packed` returns them raw, and
+:func:`finalize`, elementwise torch glue as in the JAX package, turns them
+into the share on the CPU path and in the plain versions. The Gen kernel
+does the group arithmetic itself (``csrc/group.cuh``) and writes whole
+wire rows [B, in_bits+1, 8].
 
 The TPU staging ([T, 128] tiles, ``pack_keys``, ``block_rows``) does not
 carry over: the Eval kernel reads wire rows [B, in_bits+1, 8] in place
@@ -46,8 +50,9 @@ NOT_ONE = MASK32 ^ 1
 
 _EVAL_ARGS = (_build.P, _build.I64, _build.P, _build.I64, _build.I64,
               _build.I64, _build.P, _build.INT, _build.P, _build.P,
-              _build.P, _build.I64, _build.INT, _build.INT, _build.INT,
-              *(_build.U32,) * 4, _build.P, _build.P)
+              _build.P, _build.P, _build.I64, _build.INT, _build.INT,
+              _build.INT, *(_build.U32,) * 12, _build.P, _build.P)
+_NO_GROUP = ((0,) * 4, (0,) * 4)  # fss::Group of the raw epilogue: unread
 _GEN_ARGS = (_build.P, _build.P, _build.I64, _build.P, _build.P,
              _build.I64, _build.INT, _build.INT, _build.INT,
              *(_build.U32,) * 8, _build.P, _build.P)
@@ -205,15 +210,25 @@ def eval_packed(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
                      device=dev)
     so = torch.empty((B, 4), dtype=torch.int32, device=dev)
     t = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch_eval(s0, cws, xs, in_bits, party, arg, tag, group_mode, vmask,
+                 _NO_GROUP, (vo, so, t, None))
+    return vo, so, t
+
+
+def _launch_eval(s0, cws, xs, in_bits, party, arg, tag, mode, vmask,
+                 group_params, outs) -> None:
+    """One ``dcf_eval`` launch; outs: (vo, so, t, None) for the raw
+    epilogue, (None, None, None, shares) for the shares."""
+    mask, mod = group_params
     fn = _build.function("dcf_eval", "fss_dcf_eval", _EVAL_ARGS)
     _build.launch(
         "dcf_eval", fn, s0.data_ptr(), 4 if s0.dim() == 2 else 0,
         cws.data_ptr(), 8, 1, (in_bits + 1) * 8 if cws.dim() == 3 else 0,
-        xs.data_ptr(), int(xs.dim() == 2), vo.data_ptr(), so.data_ptr(),
-        t.data_ptr(), B, in_bits, int(party), MODES.index(group_mode),
-        *(int(m) & MASK32 for m in vmask), arg, device=dev,
-        kernel="dcf_eval" + tag)
-    return vo, so, t
+        xs.data_ptr(), int(xs.dim() == 2),
+        *(None if o is None else o.data_ptr() for o in outs), xs.shape[0],
+        in_bits, int(party), MODES.index(mode),
+        *(int(m) & MASK32 for m in vmask), *mask, *mod, arg,
+        device=xs.device, kernel="dcf_eval" + tag)
 
 
 def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
@@ -233,9 +248,39 @@ def eval_packed_plain(s0, cws, xs, in_bits: int, party: int, prg,
     return i32(acc), s, t
 
 
+@span("ops.dcf.eval_shares")
+def eval_shares(s0: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor,
+                in_bits: int, party: int, prg, group) -> torch.Tensor:
+    """The DCF tree walk and its finalize in one launch, with ``prg``
+    (ChaCha or AesMmo, mul=4): [B, 4] int32 shares of ``group``, those of
+    :func:`finalize` over :func:`eval_packed`'s outputs. Inputs as
+    :func:`eval_packed`'s."""
+    mode = group_mode(group)
+    dev = _check_eval(s0, cws, xs, in_bits, party, mode)
+    arg, tag = _build.prg_arg(prg, 4)
+    if dev.type == "cpu":
+        return eval_shares_plain(s0, cws, xs, in_bits, party, prg, group)
+    shares = torch.empty((xs.shape[0], 4), dtype=torch.int32, device=dev)
+    _launch_eval(s0, cws, xs, in_bits, party, arg, tag, mode,
+                 value_mask(group), gen_params(group),
+                 (None, None, None, shares))
+    return shares
+
+
+def eval_shares_plain(s0, cws, xs, in_bits: int, party: int, prg,
+                      group) -> torch.Tensor:
+    """Plain PyTorch version of :func:`eval_shares`, on any device."""
+    vo, so, t = eval_packed_plain(s0, cws, xs, in_bits, party, prg,
+                                  group_mode(group), value_mask(group))
+    return finalize(group, party, vo, so, t, cws[..., in_bits, 4:8])
+
+
 def eval_points(prg, group, in_bits: int, party: int, s0, cws,
                 xs) -> torch.Tensor:
-    """Point evaluation against wire keys: kernel walk + finalize."""
+    """Point evaluation against wire keys: on the card one launch of
+    :func:`eval_shares`; on the CPU the walk, then :func:`finalize`."""
+    if xs.device.type == "cuda":
+        return eval_shares(s0, cws, xs, in_bits, party, prg, group)
     vo, so, t = eval_packed(s0, cws, xs, in_bits, party, prg,
                             group_mode(group), value_mask(group))
     return finalize(group, party, vo, so, t, cws[..., in_bits, 4:8])

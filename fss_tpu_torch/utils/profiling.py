@@ -18,7 +18,8 @@ Counterpart of ``fss_tpu.utils.profiling``. Two tools:
 
 The spans' sites are the layers of the DCF and DPF paths: the API
 (``api.Dcf.eval``, ``api.Dcf.gen_batch``, ``api.Dpf.eval``,
-``api.Dpf.gen_batch``), the kernel wrappers (``ops.dcf.eval_packed``,
+``api.Dpf.gen_batch``), the kernel wrappers (``ops.dcf.eval_shares``, the
+DCF Eval's one launch on the card, ``ops.dcf.eval_packed``,
 ``ops.dcf.gen_packed``, ``ops.dpf.eval_packed``, ``ops.dpf.gen_packed``),
 each launch (``launch.<kernel>``, the key of ``_build.launches``) and the
 scheme glue (``ops.dcf.finalize``, ``ops.dpf.finalize``).

@@ -188,3 +188,50 @@ def test_modes_and_masks():
         dcf_cuda.eval_packed(torch.zeros(4, dtype=torch.int32),
                              torch.zeros((41, 8), dtype=torch.int32),
                              torch.zeros(3, dtype=torch.int32), 40, 0, PRG4)
+
+
+def _zeros(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+# Arguments of eval_shares that its checks refuse, as eval_packed's do:
+# (s0, cws, xs, in_bits, party, prg), the case's one fault named.
+_BAD_SHARES_ARGS = {
+    "cws_rows": (_zeros(3, 4), _zeros(3, 8, 8), _zeros(3), 8, 0, PRG4),
+    "cws_batch": (_zeros(3, 4), _zeros(2, 9, 8), _zeros(3), 8, 0, PRG4),
+    "cws_words": (_zeros(4), _zeros(9, 4), _zeros(3), 8, 0, PRG4),
+    "s0_batch": (_zeros(2, 4), _zeros(9, 8), _zeros(3), 8, 0, PRG4),
+    "s0_words": (_zeros(3, 3), _zeros(9, 8), _zeros(3), 8, 0, PRG4),
+    "xs_words_wide": (_zeros(4), _zeros(41, 8), _zeros(3), 40, 0, PRG4),
+    "xs_lanes": (_zeros(4), _zeros(9, 8), _zeros(3, 2), 8, 0, PRG4),
+    "party": (_zeros(4), _zeros(9, 8), _zeros(3), 8, 2, PRG4),
+    "prg_mul": (_zeros(4), _zeros(9, 8), _zeros(3), 8, 0,
+                ChaCha(2, NONCE)),
+    "in_bits": (_zeros(4), _zeros(1, 8), _zeros(3), 0, 0, PRG4),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_SHARES_ARGS))
+def test_eval_shares_checks_its_arguments(case):
+    s0, cws, xs, in_bits, party, prg = _BAD_SHARES_ARGS[case]
+    with pytest.raises(ValueError):
+        dcf_cuda.eval_shares(s0, cws, xs, in_bits, party, prg,
+                             tgroups.Uint(32))
+
+
+@pytest.mark.parametrize("gname", ["uint32", "bytes", "uint64_mod",
+                                   "uint127", "uint127_mersenne"])
+def test_eval_shares_plain_is_eval_points(gname, rng):
+    """On the CPU the one-launch wrapper takes its plain version: the
+    walk, then the finalize, as ``eval_points`` there."""
+    in_bits, B = 10, 40
+    tg = groups_pair(gname)[1]
+    s0s, _, _, cws = _keys(rng, tg, in_bits, B)
+    xs = to_cpu(rng.integers(0, 2**in_bits, size=B, dtype=np.uint32))
+    for party in (0, 1):
+        s0 = to_cpu(s0s[:, party])
+        assert torch.equal(
+            dcf_cuda.eval_shares(s0, to_cpu(cws), xs, in_bits, party, PRG4,
+                                 tg),
+            dcf_cuda.eval_points(PRG4, tg, in_bits, party, s0, to_cpu(cws),
+                                 xs)), party

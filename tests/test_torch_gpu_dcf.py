@@ -21,12 +21,16 @@ from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.api import Dcf
 from fss_tpu_torch.ops import dcf_cuda, eval_all_cuda
+from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
+from fss_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
 NONCE = (0xABCD1234, 0x55AA55AA)
 PRG4 = ChaCha(4, NONCE)
+AES4 = AesMmo(4, tuple(bytes(range(16 * i, 16 * (i + 1))) for i in range(4)))
+PRGS = {"chacha": PRG4, "aes": AES4}
 VEC = pathlib.Path(__file__).resolve().parent / "golden" / "vectors"
 
 # One group per accumulator mode, and the two narrow moduli.
@@ -85,6 +89,57 @@ def test_eval_kernel_matches_plain(gname, n, layout, cuda):
         want = dcf_cuda.eval_packed_plain(s0, cws, xs, n, party, PRG4, mode,
                                           vmask)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", ["wire", "broadcast"])
+@pytest.mark.parametrize("n", [1, 20, 33, 128])
+@pytest.mark.parametrize("pname", list(PRGS))
+@pytest.mark.parametrize("gname", list(GROUPS))
+def test_eval_points_fused_matches_plain_on_cpu(gname, pname, n, layout,
+                                                cuda):
+    """On the card ``eval_points`` is one launch with the shares
+    epilogue; word for word the walk then ``finalize`` on the CPU."""
+    g, prg = GROUPS[gname], PRGS[pname]
+    rng = np.random.default_rng(300 + n)
+    batch = 512
+    s0s = _words(rng, (batch, 2, 4), cuda)
+    alphas = _inputs(rng, n, batch, cuda)
+    wire = dcf_cuda.gen_batch(prg, g, n, "lt", s0s, alphas,
+                              _words(rng, (batch, 4), cuda))
+    xs = alphas.clone()
+    xs.view(batch, -1)[1::2, 0] ^= 1
+    for party in (0, 1):
+        s0, cws = {
+            "wire": (s0s[:, party].contiguous(), wire),
+            "broadcast": (s0s[0, party].contiguous(), wire[0].contiguous()),
+        }[layout]
+        got = dcf_cuda.eval_points(prg, g, n, party, s0, cws, xs)
+        cpu = [a.cpu() for a in (s0, cws, xs)]
+        vo, so, t = dcf_cuda.eval_packed_plain(
+            *cpu, n, party, prg, dcf_cuda.group_mode(g),
+            dcf_cuda.value_mask(g))
+        want = dcf_cuda.finalize(g, party, vo, so, t, cpu[1][..., n, 4:8])
+        assert torch.equal(got.cpu(), want), party
+
+
+@pytest.mark.parametrize("pname", list(PRGS))
+def test_eval_is_one_launch_without_finalize(pname, cuda):
+    """One ``Dcf.eval`` on the card: one ``dcf_eval`` launch, inside
+    ``ops.dcf.eval_shares``, and no ``ops.dcf.finalize`` span."""
+    d = Dcf(20, groups.Uint(32), PRGS[pname], device=cuda)
+    rng = np.random.default_rng(5)
+    s0s = _words(rng, (64, 2, 4), cuda)
+    cws = d.gen_batch(s0s, _words(rng, (64,), cuda, 20),
+                      _words(rng, (64, 4), cuda))
+    xs = _words(rng, (64,), cuda, 20)
+    kernel = "dcf_eval" + ("_aes" if pname == "aes" else "")
+    _build.reset_launches()
+    with profiling.record() as rec:
+        d.eval(0, s0s[:, 0].contiguous(), cws, xs)
+    assert {k: v for k, v in _build.launches.items() if v} == {kernel: 1}
+    names = [s.name for s in rec.spans]
+    assert sorted(names) == sorted(["api.Dcf.eval", "ops.dcf.eval_shares",
+                                    f"launch.{kernel}"]), names
 
 
 @pytest.mark.parametrize("pred", ["lt", "gt"])
