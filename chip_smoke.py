@@ -72,7 +72,11 @@ Phases, each printing one line (any failure exits non-zero):
      EvalAll call's launches and their times; the Grotto queries and
      EvalAll, the VDMPF's batch_eval and Gen split into their parts, and
      the route kernel alone (``grotto_timing``, ``vdmpf_timing``,
-     ``feistel_row``);
+     ``feistel_row``); the PIR server's main path at its benchmark shape
+     (32 queries over 2^20 records of 64 words: ``Dpf.pir_answer`` with
+     its launches counted, the contraction against its plain version and
+     the benchmark's reference) and the contraction's time
+     (``pir_contract_row``);
   7. multi-device runs (``fss_tpu_torch.parallel``, ``phase7``), each
      path with the launch counts zeroed before it and read after, on
      every rank: SHARD_RANKS ranks over gloo sharing the card run the
@@ -1143,6 +1147,100 @@ def feistel_row(V, bound, launches: int) -> dict:
             "walk_bound_ms": walk_bound_ms}
 
 
+PIR_REPLACES = ("XLA: fss_tpu/parallel/mesh.py:129 (pir_lookup_sharded) and "
+                "samples/pir_tpu.py:61: (sel[:, None] * db).sum(0), a query "
+                "a pass")
+# The PIR server's shape (port_bench's pir20.answer): 2^20 records of 64
+# words, 32 queries a batch; the plain EvalAll and the reference check
+# PIR_PLAIN_KEYS of them.
+PIR_BITS, PIR_RECORD_WORDS, PIR_QUERIES, PIR_PLAIN_KEYS = 20, 64, 32, 2
+
+
+def pir_contract_row(dev, bound, n: int = PIR_BITS,
+                     words: int = PIR_RECORD_WORDS,
+                     queries: int = PIR_QUERIES) -> dict:
+    """The PIR server's main path and the kernels line's pir_contract row
+    at its shape: ``Dpf.pir_answer`` of both parties to ``queries`` keys
+    (Uint(32), ChaCha mul=2) over a table of 2^n records of ``words``
+    words made on the card, the launches zeroed just before and read just
+    after (two ``dpf_eval_all`` a key and party above 1 bit, one
+    ``pir_contract`` a party). Checks: the answers add to the queried rows;
+    ``pir_cuda.contract`` of party 0's selectors (word 0 of the batch's
+    EvalAll shares, a strided view) equals ``contract_plain`` word for word
+    and the answers; PIR_PLAIN_KEYS keys through the plain EvalAll and
+    ``contract_plain``, and through the benchmark's reference
+    (``port_bench/reference/pir.py``: its Gen, EvalAll and contraction),
+    equal their answers. ``ms`` is the contraction's launch, ``plain_ms``
+    ``contract_plain``'s, the bound Q N D IMADs (each two issue slots of
+    the 128-lane count: 64 an SM a clock) and the table, the selector
+    words and the answers, 4 B a word."""
+    from fss_tpu_torch import _build
+    from fss_tpu_torch import block as blk
+    from fss_tpu_torch import groups
+    from fss_tpu_torch.api import Dpf
+    from fss_tpu_torch.ops import eval_all_cuda, pir_cuda
+    from fss_tpu_torch.prg.chacha import ChaCha
+    from port_bench.reference import pir as ref
+    rng = np.random.default_rng(20)
+    d = Dpf(n, groups.Uint(32), ChaCha(2, NONCE), device=dev)
+    db = blk.words(rng.integers(0, 2**32, size=(1 << n, words),
+                                dtype=np.uint64), dev)
+    s0s = blk.words(rng.integers(0, 2**32, size=(queries, 2, 4),
+                                 dtype=np.uint64), dev)
+    idx = rng.integers(0, 1 << n, size=queries)
+    betas = torch.zeros((queries, 4), dtype=torch.int32, device=dev)
+    betas[:, 0] = 1
+    cws = d.gen_batch(s0s, idx, betas)
+    seeds = [s0s[:, p].contiguous() for p in (0, 1)]
+
+    answers, launches = _counted(dev, lambda: [
+        d.pir_answer(p, seeds[p], cws, db) for p in (0, 1)])
+    want_launches = {"dpf_eval_all": 2 * queries * len(
+        eval_all_cuda.plan(n)), "pir_contract": 2}
+    got = (blk.u64(answers[0]) + blk.u64(answers[1])) & blk.MASK32
+    ys = eval_all_cuda.eval_all_batch(d.prg, d.group, n, 0, seeds[0], cws)
+    sel = ys[:, :, 0]
+    kernel = pir_cuda.contract(sel, db)
+    plain = pir_cuda.contract_plain(sel, db)
+    some = list(range(PIR_PLAIN_KEYS))
+    by_plain = pir_cuda.contract_plain(torch.stack([
+        eval_all_cuda.eval_all_plain(d.prg, d.group, n, 0, seeds[0][i],
+                                     cws[i])[:, 0] for i in some]), db)
+    s0 = blk.u64(s0s[some])
+    keys = ref.keys(NONCE, 20, n, s0, torch.as_tensor(idx[some],
+                                                      device=dev))
+    by_ref = ref.answers(NONCE, 20, n, 0, s0[:, 0], keys, blk.u64(db))
+    checks = {
+        "launches": launches == want_launches,
+        "answers_are_the_rows": torch.equal(
+            got, blk.u64(db)[torch.as_tensor(idx, device=dev)]),
+        "kernel_is_plain": torch.equal(kernel, plain),
+        "kernel_is_the_answers": torch.equal(kernel, answers[0]),
+        "plain_eval_all": torch.equal(by_plain, answers[0][some]),
+        "reference_keys": torch.equal(blk.u64(cws[some]), keys),
+        "reference_answers": torch.equal(by_ref, blk.u64(answers[0][some])),
+    }
+    rec = _record("pir_answer", launches, ("dpf_eval_all", "pir_contract"),
+                  checks, queries=queries, rows=1 << n, words=words)
+    log("main_path", scheme="pir", **rec)
+    ms = cuda_ms(lambda: pir_cuda.contract(sel, db), 20)
+    plain_ms = cuda_ms(lambda: pir_cuda.contract_plain(sel, db), 2)
+    answer_ms = cuda_ms(lambda: d.pir_answer(0, seeds[0], cws, db), 5)
+    rows_n = 1 << n
+    bound_ms, bound_by = bound(
+        2 * queries * rows_n * words,
+        4 * (rows_n * words + queries * rows_n + queries * words))
+    return {"name": "pir_contract", "route": "cuda",
+            "source": "fss_tpu_torch/csrc/pir_contract.cu",
+            "replaces": PIR_REPLACES, "status": "ported",
+            "tpu_row": "XLA glue", "launches": launches.get(
+                "pir_contract", 0),
+            "max_abs_err": max_abs_err(kernel, plain), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "pir_answer_ms": answer_ms,
+            "queries": queries, "exact": rec["exact"] and rec["launched"]}
+
+
 def vdmpf_timing(V, power_limit: str, kind: str) -> None:
     """6. The VDMPF's entry points at the main path's shape: batch_eval end
     to end with each fold, and its parts on the same inputs (the point
@@ -1557,7 +1655,8 @@ def _pir_path(Z, dev, mesh, r: int, count: int) -> dict:
     answers, launches = _counted(dev, run)
     row = blk.u64(rows(Z["PIR_INDEX"], 1)[0])
     got = (blk.u64(answers[0]) + blk.u64(answers[1])) & blk.MASK32
-    return _record("pir", launches, ("dpf_gen", "dpf_eval_all"),
+    return _record("pir", launches, ("dpf_gen", "dpf_eval_all",
+                                     "pir_contract"),
                    {"answer_is_the_row": torch.equal(got, row)},
                    rows=1 << n, words=words, db_bytes=(1 << n) * words * 4,
                    ms=ms)
@@ -3507,6 +3606,10 @@ def main() -> int:
             max_abs_err=frow["max_abs_err"])
         return 1
     rows.append(frow)
+    prow = pir_contract_row(dev, bound)
+    if not prow["exact"]:
+        return 1
+    rows.append(prow)
 
     # 7. Multi-device runs and the front door; their launches join each
     # kernel's count (``launches_multi_device`` apart).

@@ -41,16 +41,17 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
     "fss_tpu_torch"
 SOURCES = ("dpf_eval", "dpf_gen", "dpf_eval_all", "dcf_eval", "dcf_gen",
            "dcf_eval_all", "ht_eval", "ht_gen", "ht_eval_all", "blake3",
-           "sha256", "vdpf_eval", "feistel")
+           "sha256", "vdpf_eval", "feistel", "pir_contract")
 HEADERS = ("chacha.cuh", "aes.cuh", "prg.cuh", "group.cuh", "dcf_acc.cuh",
            "dpf_walk.cuh", "subtree.cuh", "parties.cuh", "blake3.cuh",
            "sha256.cuh", "ring.cuh")  # digested by every .so
 PRG_SOURCES = tuple(s for s in SOURCES
-                    if s not in ("blake3", "sha256", "feistel"))
+                    if s not in ("blake3", "sha256", "feistel",
+                                 "pir_contract"))
 KERNELS = (*PRG_SOURCES, *(f"{s}_aes" for s in PRG_SOURCES),
            "blake3_xor_hash", "blake3_hash64", "blake3_chain",
            "sha256_xor_hash", "sha256_hash64", "sha256_chain",
-           "feistel_route", "feistel_permute")
+           "feistel_route", "feistel_permute", "pir_contract")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -152,19 +153,34 @@ def _launch_span(source, *args, kernel=None, **kwargs) -> str:
     return f"launch.{kernel or source}"
 
 
-@span(_launch_span)
 def launch(source: str, fn, *args, device: torch.device,
            kernel: str | None = None) -> None:
     """Call a C entry point on ``device``'s current stream, raise if the
     launch failed, and count it under ``kernel`` (default: the source).
     Recorded as the span ``launch.<kernel>``."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    with _count_lock:
-        launches[kernel or source] += 1
+    launch_many(source, fn, (args,), device=device, kernel=kernel)
+
+
+@span(_launch_span)
+def launch_many(source: str, fn, calls, *, device: torch.device,
+                kernel: str | None = None) -> None:
+    """:func:`launch` of each argument tuple of ``calls``, in order, under
+    one device guard and one lookup of the stream: each counted as a
+    launch, all recorded as one span ``launch.<kernel>``. Raises at the
+    first launch that fails."""
+    done = 0
+    try:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for args in calls:
+                rc = fn(*args, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{source} kernel launch failed: "
+                                       f"CUDA error {rc}")
+                done += 1
+    finally:
+        with _count_lock:
+            launches[kernel or source] += done
 
 
 class PrgArg(ctypes.Structure):

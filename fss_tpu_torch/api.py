@@ -27,7 +27,7 @@ from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
 from fss_tpu_torch.hash import Blake3
 from fss_tpu_torch.ops import (dcf_cuda, dpf_cuda, eval_all_cuda, ht_cuda,
-                               vdpf_cuda)
+                               pir_cuda, vdpf_cuda)
 from fss_tpu_torch.prg.aes import AesMmo
 from fss_tpu_torch.prg.chacha import ChaCha
 from fss_tpu_torch.prp.feistel import ceil_log2
@@ -167,6 +167,47 @@ class Dpf(_TreeScheme):
         return eval_all_cuda.eval_all(self.prg, self.group, self.in_bits,
                                       int(party), self._blocks(s0),
                                       self._blocks(cws))
+
+    @span("api.Dpf.pir_answer")
+    def pir_answer(self, party: int, s0, cws, db) -> torch.Tensor:
+        """A two-server PIR server's answers to a batch of Q queries over
+        one table: [Q, D] int32 shares, ans[q] = sum_j y_q[j] db[j] mod
+        2^32, whose two parties' answers add to db[idx_q] mod 2^32.
+
+        s0 [Q, 4] the party's seeds; cws [Q, in_bits+1, 8] its wire keys,
+        each of beta = (1, 0, 0, 0) at the private row (the scheme's group
+        must be Uint(32)); db the [2^in_bits, D] int32 table on the
+        scheme's device, 1 <= Q <= 64. One EvalAll a key (the batch's
+        launches made in one call, ``eval_all_cuda.eval_all_batch``), then
+        one contraction of the Q selector share vectors (word 0 of the
+        shares) against the table (``ops/pir_cuda.py``), which reads the
+        table once for the batch."""
+        if self.group != groups.Uint(32):
+            raise ValueError(f"pir_answer needs the Uint(32) group, got "
+                             f"{self.group}")
+        if party not in (0, 1):
+            raise ValueError(f"party must be 0 or 1, got {party}")
+        s0, cws = self._blocks(s0), self._blocks(cws)
+        if (s0.dim() != 2 or s0.shape[1] != 4
+                or not 1 <= s0.shape[0] <= pir_cuda.MAX_QUERIES):
+            raise ValueError(f"s0 must be [Q, 4] with 1 <= Q <= "
+                             f"{pir_cuda.MAX_QUERIES}, got "
+                             f"{tuple(s0.shape)}")
+        n, q = self.in_bits, s0.shape[0]
+        if tuple(cws.shape) != (q, n + 1, 8):
+            raise ValueError(f"cws must be [{q}, {n + 1}, 8], got "
+                             f"{tuple(cws.shape)}")
+        if not isinstance(db, torch.Tensor) or db.dtype != torch.int32:
+            raise TypeError("db must be an int32 tensor")
+        if db.device != s0.device:
+            raise ValueError(f"db is on {db.device}, the scheme on "
+                             f"{s0.device}")
+        if db.dim() != 2 or db.shape[0] != 1 << n:
+            raise ValueError(f"db must be [2^{n}, D], got "
+                             f"{tuple(db.shape)}")
+        ys = eval_all_cuda.eval_all_batch(self.prg, self.group, n,
+                                          int(party), s0, cws)
+        return pir_cuda.contract(ys[:, :, 0], db)
 
 
 class Dcf(_TreeScheme):

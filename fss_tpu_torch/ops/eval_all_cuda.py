@@ -155,33 +155,47 @@ _DPF_EPILOGUES = (*dcf_cuda.MODES, "seeds", "nodes")
 
 def _dpf_launches(prg2, group, in_bits, party, s0, cws, most, out, t=None,
                   r=0, k=0):
-    """The plan's launches into ``out`` (shares, or with ``t`` the seeds and
-    t bits) of shard r of 2^k; the top launch's roots go to a scratch
-    buffer."""
+    """The plan's launches of each key of s0 [Q, 4] and cws [Q, rows,
+    words] into ``out`` [Q, 2^(n-k), 4] (shares, or with ``t`` [Q,
+    2^(n-k)] the seeds and t bits), shard r of 2^k; the top launches'
+    roots go to a scratch buffer. The launches are made in one call
+    (``_build.launch_many``), so that the host's cost a key is its
+    launch calls."""
     arg, tag = _build.prg_arg(prg2, 2)
     fn = _build.function("dpf_eval_all", "fss_dpf_eval_all", _DPF_ARGS)
-    roots = None
-    for first, walk, b in plan(in_bits, most):
-        if roots is not None:
-            roots, = _shard_rows(first, r, k, roots)
-        if first + walk + b < in_bits:
-            dst = torch.empty((1 << (first + walk + b), 4),
-                              dtype=torch.int32, device=s0.device)
-            epilogue = "nodes"
-        else:
-            dst = out
-            epilogue = "seeds" if t is not None else dcf_cuda.group_mode(group)
-        mask, mod = (dcf_cuda.gen_params(group) if epilogue in dcf_cuda.MODES
-                     else ((0,) * 4,) * 2)
-        _build.launch(
-            "dpf_eval_all", fn, s0.data_ptr(),
-            None if roots is None else roots.data_ptr(), _rows(cws, first),
-            cws.stride(0), dst.data_ptr(),
-            t.data_ptr() if epilogue == "seeds" else None,
-            walk if roots is None else first - k, b, party,
-            _DPF_EPILOGUES.index(epilogue), *mask, *mod, arg,
-            device=s0.device, kernel="dpf_eval_all" + tag)
-        roots = dst
+    steps = plan(in_bits, most)
+    top = sum(steps[0])  # the top launch's last level, the body's roots
+    nodes = None if len(steps) == 1 else torch.empty(
+        (s0.shape[0], 1 << top, 4), dtype=torch.int32, device=s0.device)
+    epilogue = "seeds" if t is not None else dcf_cuda.group_mode(group)
+    mask, mod = (dcf_cuda.gen_params(group) if epilogue in dcf_cuda.MODES
+                 else ((0,) * 4,) * 2)
+    leaves = (_DPF_EPILOGUES.index(epilogue), *mask, *mod)
+    roots_of = (_DPF_EPILOGUES.index("nodes"), *(0,) * 8)
+
+    def at(x):  # i, row -> the device address of x[i, row] (int32 words)
+        base, (step, row_step) = x.data_ptr(), x.stride()[:2]
+        return lambda i, row=0: base + (i * step + row * row_step) * 4
+
+    seed, rows, leaf = at(s0), at(cws), at(out)
+    node, bit = (None if x is None else at(x) for x in (nodes, t))
+    calls = []
+    for i in range(s0.shape[0]):
+        roots = None  # the previous launch's nodes, level ``first``
+        for first, walk, b in steps:
+            if first + walk + b < in_bits:
+                dst, seeds, tail = node(i), None, roots_of
+            else:
+                dst, tail = leaf(i), leaves
+                seeds = None if bit is None else bit(i)
+            calls.append((seed(i), None if roots is None else
+                          roots + (r << (first - k)) * 16,  # the shard's
+                          rows(i, first), cws.stride(1), dst, seeds,
+                          walk if roots is None else first - k, b, party,
+                          *tail, arg))
+            roots = dst
+    _build.launch_many("dpf_eval_all", fn, calls, device=s0.device,
+                       kernel="dpf_eval_all" + tag)
 
 
 def eval_all(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
@@ -201,7 +215,34 @@ def eval_all(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
     most, r, k = shard_plan(in_bits, most, shard)
     out = torch.empty((1 << (in_bits - k), 4), dtype=torch.int32,
                       device=dev)
-    _dpf_launches(prg2, group, in_bits, party, s0, cws, most, out, r=r, k=k)
+    _dpf_launches(prg2, group, in_bits, party, s0[None], cws[None], most,
+                  out[None], r=r, k=k)
+    return out
+
+
+def eval_all_batch(prg2, group, in_bits: int, party: int, s0: torch.Tensor,
+                   cws: torch.Tensor) -> torch.Tensor:
+    """Full-domain DPF evaluation of a batch of keys: [Q, 2^in_bits, 4],
+    key q's shares as :func:`eval_all` gives them, by the same launches
+    (the :func:`plan`'s two a key, one at in_bits = 1). s0 [Q, 4] the
+    party's seeds; cws [Q, in_bits+1, 8] its wire rows. The checks, the
+    PRG's argument and the top launches' roots are made once for the
+    batch, and all its launches in one call."""
+    if s0.dim() != 2 or s0.shape[0] < 1 or cws.dim() != 3 or \
+            cws.shape[0] != s0.shape[0]:
+        raise ValueError(f"s0 must be [Q, 4] and cws [Q, ...] with Q >= 1, "
+                         f"got {tuple(s0.shape)} and {tuple(cws.shape)}")
+    dev = _check_key(s0[0], cws[0], in_bits, party, in_bits + 1, 5,
+                     SUBTREE_LEVELS)
+    _build.check(s0, "s0", dev, [tuple(s0.shape)])
+    _build.check_prg(prg2, 2)
+    if dev.type == "cpu":
+        return torch.stack([eval_all_plain(prg2, group, in_bits, party, s0[i],
+                                           cws[i])
+                            for i in range(s0.shape[0])])
+    out = torch.empty((s0.shape[0], 1 << in_bits, 4), dtype=torch.int32,
+                      device=dev)
+    _dpf_launches(prg2, group, in_bits, party, s0, cws, SUBTREE_LEVELS, out)
     return out
 
 
@@ -221,7 +262,8 @@ def expand_leaves(prg2, in_bits: int, party: int, s0: torch.Tensor,
     out = torch.empty((1 << (in_bits - k), 4), dtype=torch.int32,
                       device=dev)
     t = torch.empty((1 << (in_bits - k),), dtype=torch.int32, device=dev)
-    _dpf_launches(prg2, None, in_bits, party, s0, cws, most, out, t, r, k)
+    _dpf_launches(prg2, None, in_bits, party, s0[None], cws[None], most,
+                  out[None], t[None], r, k)
     return out, t
 
 

@@ -45,7 +45,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from fss_tpu_torch import block as blk
 from fss_tpu_torch import groups
-from fss_tpu_torch.ops import eval_all_cuda, vdpf_cuda
+from fss_tpu_torch.ops import eval_all_cuda, pir_cuda, vdpf_cuda
 from fss_tpu_torch.schemes import grotto_dcf as _grotto
 from fss_tpu_torch.schemes import vdmpf as _vdmpf
 from fss_tpu_torch.schemes import vdpf as _vdpf
@@ -228,9 +228,10 @@ def pir_lookup_sharded(prg2, in_bits: int, party: int, s0, cws, db,
     [2^(in_bits-k), D] (or a DTensor sharded on its leading axis over
     ``axis``); the DPF key encodes beta = (1, 0, 0, 0) at the private
     index. Each rank expands its shard of the selector shares (Uint(32)),
-    contracts them against its rows with int32 wraparound (multiplication
-    distributes over additive shares mod 2^32), and one ``all_reduce`` over
-    ``axis`` adds the partials. The partials travel as int64 values below
+    contracts them against its rows mod 2^32 (``ops/pir_cuda.py``, the
+    contraction of ``api.Dpf.pir_answer``; multiplication distributes over
+    additive shares mod 2^32), and one ``all_reduce`` over ``axis`` adds
+    the partials. The partials travel as int64 values below
     2^32, added exactly and then taken mod 2^32, so no backend's int32
     overflow is relied on. Returns the [D] int32 answer share, the same on
     every rank; the rows never move.
@@ -246,7 +247,7 @@ def pir_lookup_sharded(prg2, in_bits: int, party: int, s0, cws, db,
         raise ValueError(f"db must be this rank's [{ys.shape[0]}, D] int32 "
                          f"rows on {dev}, got {tuple(db_l.shape)} "
                          f"{db_l.dtype} on {db_l.device}")
-    part = (ys[:, 0:1] * db_l).sum(0, dtype=torch.int64) & blk.MASK32
+    part = blk.u64(pir_cuda.contract(ys[None, :, 0], db_l)[0])
     dist.all_reduce(part, group=mesh.get_group(axis))
     return blk.i32(part)
 

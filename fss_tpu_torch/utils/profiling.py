@@ -16,13 +16,15 @@ Counterpart of ``fss_tpu.utils.profiling``. Two tools:
     ``chrome://tracing`` open: the spans are ``"ph": "X"`` events of
     category ``port_span`` on the trace's own clock.
 
-The spans' sites are the layers of the DCF and DPF paths: the API
+The spans' sites are the layers of the DCF, DPF and PIR paths: the API
 (``api.Dcf.eval``, ``api.Dcf.gen_batch``, ``api.Dpf.eval``,
-``api.Dpf.gen_batch``), the kernel wrappers (``ops.dcf.eval_shares``, the
-DCF Eval's one launch on the card, ``ops.dcf.eval_packed``,
-``ops.dcf.gen_packed``, ``ops.dpf.eval_packed``, ``ops.dpf.gen_packed``),
-each launch (``launch.<kernel>``, the key of ``_build.launches``) and the
-scheme glue (``ops.dcf.finalize``, ``ops.dpf.finalize``).
+``api.Dpf.gen_batch``, ``api.Dpf.pir_answer``), the kernel wrappers
+(``ops.dcf.eval_shares``, the DCF Eval's one launch on the card,
+``ops.dcf.eval_packed``, ``ops.dcf.gen_packed``, ``ops.dpf.eval_packed``,
+``ops.dpf.gen_packed``, ``ops.pir.contract``), each launch
+(``launch.<kernel>``, the key of ``_build.launches``; one for the batch
+of a ``_build.launch_many``) and the scheme glue (``ops.dcf.finalize``,
+``ops.dpf.finalize``).
 """
 
 from __future__ import annotations

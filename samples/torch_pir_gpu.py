@@ -5,18 +5,18 @@ A client reads row ``idx`` of a database held by two non-colluding
 servers, neither of which learns ``idx``:
 
   dealer   - one DPF key pair for the point function f(idx) = 1;
-  servers  - EvalAll over the whole domain (the two launches of the
-             ``dpf_eval_all`` kernel), then the share vector contracted
-             against the database on the card:
+  servers  - ``Dpf.pir_answer``: EvalAll over the whole domain (the two
+             launches of the ``dpf_eval_all`` kernel), then the share
+             vector contracted against the database on the card (one
+             ``pir_contract`` launch):
              ans_p = sum_j y_p[j] * DB[j] (mod 2^32);
   client   - ans_0 + ans_1 = DB[idx]; each server saw only a random
              share vector.
 
 Multiplication distributes over additive shares mod 2^32, so each server
-works on its own share. ``torch.sum`` of int32 gives int64, so the
-products (int32, wrapping mod 2^32) are summed in int64 and masked back
-to 32 bits. On a CUDA device the sample fails unless ``dpf_gen`` and
-``dpf_eval_all`` launched. Run from the repository's root:
+works on its own share. On a CUDA device the sample fails unless
+``dpf_gen``, ``dpf_eval_all`` and ``pir_contract`` launched. Run from the
+repository's root:
 ``PYTHONPATH=. python samples/torch_pir_gpu.py [--device cpu]``.
 """
 
@@ -34,7 +34,7 @@ from fss_tpu_torch.api import Dpf
 IN_BITS = 14
 N = 1 << IN_BITS  # database rows
 D = 16            # uint32 words per row (64-byte records)
-KERNELS = ("dpf_gen", "dpf_eval_all")
+KERNELS = ("dpf_gen", "dpf_eval_all", "pir_contract")
 
 
 def main(device="cuda"):
@@ -51,15 +51,14 @@ def main(device="cuda"):
 
     db_dev = blk.words(db, dev)
 
-    def server(party):
-        ys = dpf.eval_all(party, s0s[party], cws)  # [N, 4] int32 shares
-        sel = ys[:, 0:1]                           # beta lives in word 0
-        return (sel * db_dev).sum(0, dtype=torch.int64) & blk.MASK32
+    def server(party):  # a batch of one query: [1, D] int32 shares
+        return dpf.pir_answer(party, s0s[party][None], cws[None], db_dev)[0]
 
     ans0, ans1 = server(0), server(1)
 
     # Client: add the two answers; nothing else leaves a server.
-    row = ((ans0 + ans1) & blk.MASK32).cpu().numpy().astype(np.uint32)
+    row = ((blk.u64(ans0) + blk.u64(ans1)) & blk.MASK32).cpu().numpy()
+    row = row.astype(np.uint32)
     assert np.array_equal(row, db[idx]), "PIR reconstruction failed"
     if dev.type == "cuda":
         print("launches:", json.dumps(_build.launched(KERNELS)))
